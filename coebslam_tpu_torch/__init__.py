@@ -1,0 +1,34 @@
+"""coebslam_tpu_torch — the PyTorch/CUDA port of coebslam_tpu.
+
+The port runs the zero-sync realtime RGB-D path (extraction, the COEB
+dynamic front-end, tracking, keyframing and windowed BA) as PyTorch code on
+an NVIDIA GPU, with the FAST corner kernel written by hand in CUDA C++
+(``csrc/fast.cu``). Module paths mirror the JAX package so each counterpart
+is found under the same name; this package imports neither JAX nor the JAX
+package.
+
+Sub-packages
+------------
+geometry   SO3/SE3 Lie-group ops, pinhole camera model
+ops        pyramid, FAST (+ CUDA kernel), grid selection, BRIEF, matching,
+           fundamental-matrix RANSAC, blur gate
+optim      pose-only Gauss-Newton, Schur-complement local BA
+slam       frame constructor, dynamic front-end, tracking step, realtime loop
+utils      synthetic RGB-D renderer
+eval       ATE metric
+"""
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def _set_matmul_precision() -> None:
+    """f32 products must be f32: TF32 keeps ~3 decimal digits, which
+    quantizes point geometry and diverges tracking (the JAX package forces
+    f32 matmul precision for the same reason)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+_set_matmul_precision()

@@ -1,0 +1,220 @@
+"""Local bundle adjustment: Schur-complement Gauss-Newton on a window.
+
+Counterpart of ``BAProblem``, ``BAResult``, ``_residuals_jacobians``,
+``_inv3x3``, ``_assemble``, ``_solve_cameras``, ``_backsub``,
+``_gn_iteration`` and ``optimize_local_ba`` of
+``coebslam_tpu/optim/local_ba.py``. The reference lays the assembly out
+lane-major ([..., M, P]) and reduces with one-hot matmuls because that is
+what the TPU runs fast; here the same values come from ordinary batched
+tensors in the natural [P, M, ...] layout. Summation order differs, so the
+values agree to float32 rounding, not bit for bit. The chunked/global
+variants are not part of this slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import CameraConfig, OptimizerConfig
+from ..geometry import se3
+from ..geometry.se3 import SE3
+
+
+class BAProblem(NamedTuple):
+    """Fixed-shape local-BA window (K keyframes, P points, M observations
+    per point)."""
+    kf_R: torch.Tensor         # [K, 3, 3] world-to-camera
+    kf_t: torch.Tensor         # [K, 3]
+    kf_fixed: torch.Tensor     # [K] bool
+    kf_valid: torch.Tensor     # [K] bool
+    pt_pos: torch.Tensor       # [P, 3]
+    pt_valid: torch.Tensor     # [P] bool
+    obs_kf: torch.Tensor       # [P, M] int64 window-KF index (-1 empty)
+    obs_uvr: torch.Tensor      # [P, M, 3] (u, v, u_right); ur < 0 => mono
+    obs_w: torch.Tensor        # [P, M] inv_sigma2
+    obs_valid: torch.Tensor    # [P, M] bool
+
+
+class BAResult(NamedTuple):
+    kf_R: torch.Tensor
+    kf_t: torch.Tensor
+    pt_pos: torch.Tensor
+    obs_valid: torch.Tensor    # post-gate classification
+    chi2: torch.Tensor         # [P, M] final per-observation chi2
+
+
+def _residuals_jacobians(prob: BAProblem, cam: CameraConfig):
+    """e [P,M,3], Jc [P,M,3,6], Jp [P,M,3,3], is_stereo [P,M]."""
+    kf_idx = torch.clamp(prob.obs_kf, min=0)
+    R = prob.kf_R[kf_idx]                      # [P, M, 3, 3]
+    t = prob.kf_t[kf_idx]                      # [P, M, 3]
+    X = prob.pt_pos[:, None, :]
+    p = torch.einsum("pmij,pmj->pmi", R, X.expand_as(t)) + t
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    z_safe = torch.where(z < 1e-6, torch.full_like(z, 1e-6), z)
+    iz = 1.0 / z_safe
+    iz2 = iz * iz
+
+    u = cam.fx * x * iz + cam.cx
+    v = cam.fy * y * iz + cam.cy
+    ur = u - cam.bf * iz
+    pred = torch.stack([u, v, ur], dim=-1)
+    is_stereo = prob.obs_uvr[..., 2] >= 0.0
+    zero = torch.zeros_like(x)
+    e = prob.obs_uvr - pred
+    e = torch.stack([e[..., 0], e[..., 1],
+                     torch.where(is_stereo, e[..., 2], zero)], dim=-1)
+
+    dur_x = torch.where(is_stereo, cam.fx * iz, zero)
+    dur_z = torch.where(is_stereo, -cam.fx * x * iz2 + cam.bf * iz2, zero)
+    dpred = torch.stack([
+        torch.stack([cam.fx * iz, zero, -cam.fx * x * iz2], dim=-1),
+        torch.stack([zero, cam.fy * iz, -cam.fy * y * iz2], dim=-1),
+        torch.stack([dur_x, zero, dur_z], dim=-1)], dim=-2)   # [P, M, 3, 3]
+    one = torch.ones_like(x)
+    dp_dxi = torch.stack([
+        torch.stack([zero, z, -y, one, zero, zero], dim=-1),
+        torch.stack([-z, zero, x, zero, one, zero], dim=-1),
+        torch.stack([y, -x, zero, zero, zero, one], dim=-1)], dim=-2)
+    Jc = dpred @ dp_dxi                                       # [P, M, 3, 6]
+    Jp = dpred @ R                                            # [P, M, 3, 3]
+    return e, Jc, Jp, is_stereo
+
+
+def _inv3x3(H):
+    """Closed-form inverse of [..., 3, 3] matrices (adjugate/determinant)."""
+    a, b, c = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
+    d, e, f = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
+    g, h, k = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
+    A = e * k - f * h
+    B = c * h - b * k
+    C = b * f - c * e
+    D = f * g - d * k
+    E = a * k - c * g
+    F = c * d - a * f
+    G = d * h - e * g
+    Hc = b * g - a * h
+    K = a * e - b * d
+    det = a * A + b * D + c * G
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-18,
+                                torch.full_like(det, 1e-18), det)
+    rows = torch.stack([torch.stack([A, B, C], -1), torch.stack([D, E, F], -1),
+                        torch.stack([G, Hc, K], -1)], -2)
+    return rows * inv_det[..., None, None]
+
+
+def _assemble(prob: BAProblem, cam: CameraConfig, use_huber: bool,
+              chi2_mono: float, chi2_stereo: float, damping: float):
+    """Point-marginalized reduced camera system: S [K, K, 6, 6], b [K, 6],
+    and the per-observation terms needed for back-substitution."""
+    K = prob.kf_R.shape[0]
+    e, Jc, Jp, is_stereo = _residuals_jacobians(prob, cam)
+    dev = e.device
+
+    chi2 = torch.sum(e * e, dim=-1) * prob.obs_w                  # [P, M]
+    delta = torch.where(
+        is_stereo,
+        torch.sqrt(torch.full((), chi2_stereo, dtype=torch.float32, device=dev)),
+        torch.sqrt(torch.full((), chi2_mono, dtype=torch.float32, device=dev)))
+    err = torch.sqrt(torch.clamp(chi2, min=1e-12))
+    if use_huber:
+        w_rob = torch.where(err > delta, delta / err, torch.ones_like(err))
+    else:
+        w_rob = torch.ones_like(err)
+    w = (w_rob * prob.obs_w * prob.obs_valid.to(e.dtype)
+         * prob.pt_valid[:, None].to(e.dtype)
+         * (prob.obs_kf >= 0).to(e.dtype))                       # [P, M]
+
+    wJp = Jp * w[..., None, None]
+    Hpp = torch.einsum("pmri,pmrj->pij", wJp, Jp)                 # [P, 3, 3]
+    bp = torch.einsum("pmrs,pmr->ps", wJp, e)                     # [P, 3]
+    diag = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+    Hpp = Hpp + torch.diag_embed(1e-3 * diag + damping)
+    Hi = _inv3x3(Hpp)                                             # [P, 3, 3]
+
+    wJc = Jc * w[..., None, None]
+    A = torch.einsum("pmri,pmrj->pmij", wJc, Jp)                  # [P, M, 6, 3]
+    AHinv = A @ Hi[:, None]                                       # [P, M, 6, 3]
+    Hcc = torch.einsum("pmri,pmrj->pmij", wJc, Jc)                # [P, M, 6, 6]
+    bc = torch.einsum("pmri,pmr->pmi", wJc, e)                    # [P, M, 6]
+
+    kf_idx = torch.clamp(prob.obs_kf, min=0)
+    flat = kf_idx.reshape(-1)
+    S_diag = torch.zeros((K, 6, 6), dtype=e.dtype, device=dev).index_add_(
+        0, flat, Hcc.reshape(-1, 6, 6))
+    b = torch.zeros((K, 6), dtype=e.dtype, device=dev).index_add_(
+        0, flat, bc.reshape(-1, 6))
+
+    # Schur cross terms couple every pair of observations of one point:
+    # S[k, l] -= sum_p (sum_{m in k} AHinv_m)(sum_{n in l} A_n)^T.
+    oh = (kf_idx[..., None] == torch.arange(K, device=dev)).to(e.dtype)
+    T = torch.einsum("pmk,pmis->pkis", oh, AHinv)                 # [P, K, 6, 3]
+    U = torch.einsum("pmk,pmis->pkis", oh, A)
+    S = -torch.einsum("pkis,pljs->klij", T, U)                    # [K, K, 6, 6]
+    ar = torch.arange(K, device=dev)
+    S[ar, ar] += S_diag
+    b = b - torch.einsum("pkis,ps->ki", T, bp)
+    return S, b, (A, Hi, bp, kf_idx)
+
+
+def _solve_cameras(S, b, kf_fixed, kf_valid, damping: float):
+    """Dense solve of the masked 6K x 6K reduced camera system -> dxi."""
+    K = S.shape[0]
+    free = (~kf_fixed) & kf_valid
+    free_f = free.to(S.dtype)
+    S = S * free_f[:, None, None, None] * free_f[None, :, None, None]
+    eye = torch.eye(6, dtype=S.dtype, device=S.device)
+    ar = torch.arange(K, device=S.device)
+    S = S.clone()
+    S[ar, ar] += eye * torch.where(free, damping, 1.0)[:, None, None]
+    b = b * free_f[:, None]
+    S_dense = S.permute(0, 2, 1, 3).reshape(K * 6, K * 6)
+    dxi = torch.linalg.solve_ex(S_dense, b.reshape(K * 6))[0].reshape(K, 6)
+    norm = torch.linalg.norm(dxi, dim=-1, keepdim=True)
+    dxi = dxi * torch.clamp(0.5 / torch.clamp(norm, min=1e-12), max=1.0)
+    return dxi * free_f[:, None]
+
+
+def _backsub(terms, dxi, pt_valid, pt_pos):
+    """Point back-substitution: dp = Hpp^-1 (bp - sum_m A^T dxi_kf)."""
+    A, Hi, bp, kf_idx = terms
+    Atd = torch.einsum("pmij,pmi->pj", A, dxi[kf_idx])
+    dp = torch.einsum("psj,pj->ps", Hi, bp - Atd)
+    dp_norm = torch.linalg.norm(dp, dim=-1, keepdim=True)
+    dp = dp * torch.clamp(0.5 / torch.clamp(dp_norm, min=1e-12), max=1.0)
+    dp = dp * pt_valid[:, None].to(dp.dtype)
+    return pt_pos + dp
+
+
+def _gn_iteration(prob: BAProblem, cam: CameraConfig, use_huber: bool,
+                  chi2_mono: float, chi2_stereo: float,
+                  damping: float) -> BAProblem:
+    """One Schur-complement GN step; returns updated poses/points."""
+    S, b, terms = _assemble(prob, cam, use_huber, chi2_mono, chi2_stereo,
+                            damping)
+    dxi = _solve_cameras(S, b, prob.kf_fixed, prob.kf_valid, damping)
+    new_pts = _backsub(terms, dxi, prob.pt_valid, prob.pt_pos)
+    new_pose = se3.retract(SE3(prob.kf_R, prob.kf_t), dxi)
+    return prob._replace(kf_R=new_pose.R, kf_t=new_pose.t, pt_pos=new_pts)
+
+
+def _gate(prob: BAProblem, cam: CameraConfig, chi2_m: float, chi2_s: float):
+    e, _, _, is_stereo = _residuals_jacobians(prob, cam)
+    chi2 = torch.sum(e * e, dim=-1) * prob.obs_w
+    th = torch.where(is_stereo, chi2_s, chi2_m)
+    return prob.obs_valid & (chi2 <= th), chi2
+
+
+def optimize_local_ba(prob: BAProblem, cam: CameraConfig,
+                      cfg: OptimizerConfig) -> BAResult:
+    """5 iterations, outlier gate, 10 iterations, final gate."""
+    chi2_m, chi2_s = cfg.chi2_mono, cfg.chi2_stereo
+    for _ in range(cfg.local_ba_iters_first):
+        prob = _gn_iteration(prob, cam, True, chi2_m, chi2_s, damping=1e-5)
+    prob = prob._replace(obs_valid=_gate(prob, cam, chi2_m, chi2_s)[0])
+    for _ in range(cfg.local_ba_iters_second):
+        prob = _gn_iteration(prob, cam, True, chi2_m, chi2_s, damping=1e-5)
+    final_valid, chi2 = _gate(prob, cam, chi2_m, chi2_s)
+    return BAResult(kf_R=prob.kf_R, kf_t=prob.kf_t, pt_pos=prob.pt_pos,
+                    obs_valid=final_valid, chi2=chi2)
