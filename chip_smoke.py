@@ -7,22 +7,32 @@ Phases (each one failing the run with a non-zero exit when it fails):
      (coebslam_tpu_torch/csrc/fast.cu -> build/) and print the build time
      and the registers, shared memory and spills ptxas reports.
   2. The kernel against its plain PyTorch version on the card, at thr 7
-     and 10: a rendered 640x480 frame's 8-level pyramid in the extractor's
-     canvas, and the canvases of FAST_EDGE_CASES (extents one pixel below,
+     and 10: the canvases the paths give it (a rendered 640x480 orbit
+     frame's 8-level pyramid under SystemConfig's ORB; the circuit's first
+     frame's 4-level pyramid under the circuit's ORB, which the kidnap
+     shares), each at its config's two thresholds, and the canvases of
+     FAST_EDGE_CASES (extents one pixel below,
      at and above the kernel's 64x32 tile, an extent + 3 on a tile seam,
      W % 4 == 0 and != 0, integer-valued images for NMS ties, negative
      samples for the kernel's float path). Score and
      strength bit-equal over the whole canvas; strength also equal to the
      edge-padded reference formula inside each level.
   3. The extractor on the card through the kernel against the extractor
-     with the plain FAST: valid equal, uv within 1e-4, descriptors
-     bit-equal.
+     with the plain FAST, on the orbit frame (with a dynamic mask, area
+     mode off and on) and on the circuit frame under its ORB: valid equal,
+     uv within 1e-4, descriptors bit-equal.
   4. The main path: RealtimeSlam at full width (SystemConfig() and
-     RTLimits() defaults) over the two-pass dynamic orbit of bench.py
-     (150 rendered frames with the walker and its ground-truth boxes, run
-     twice). Every frame must track, ATE < 2.5 cm, and the kernel must be
-     launched once per frame. Prints fps of the second pass, keyframes,
-     live points and host synchronisations per frame.
+     RTLimits() defaults) with the vocabulary (artifacts/vocab_1e5.npz)
+     and the maintenance program every 8 frames, over the two-pass dynamic
+     orbit of bench.py (150 rendered frames with the walker and its
+     ground-truth boxes, run twice). Every frame must track, ATE < 2.5 cm,
+     the kernel must be launched once per frame and maintenance dispatched
+     300 // 8 times. Prints fps of the second pass, keyframes, live points,
+     loops closed, relocalizations, bank entries, host synchronisations per
+     frame and the maintenance dispatch times. Dispatches are timed without
+     draining the card (host ms of the call, and the device span between
+     CUDA events recorded around it, read after the run), so fps and the
+     sync count are those of the program as it runs.
   5. The kernel's time on the card beside the plain version's and the
      bound (fast_cuda.work: live input bytes read once, both outputs
      written once), at the main path's shape: CUDA events around one call
@@ -33,6 +43,16 @@ Phases (each one failing the run with a non-zero exit when it fails):
      finds the canvas that level_canvas has just written. An empty kernel
      timed the same way shows what the method cannot go below. Fails only
      on a time that is not finite.
+  6. The loop circuit of bench.py (run_loop_event): 110 frames of the
+     six-wall room around a 1 m circle and past its start, depth x 1.06,
+     1024 keypoints on 4 levels, maintenance every frame. At least one
+     closure applied, every applied closure to a keyframe <= 8, ATE < 12
+     cm, one kernel launch per frame.
+  7. Kidnap relocalization (tests/test_realtime_loop.py): frames 0-49 of
+     the circuit, then 6-15 again, maintenance every 2 frames. At least one
+     relocalization, the last 4 frames tracked, ATE of the last 5 < 5 cm.
+Each maintained phase prints the JAX package's result on the CPU for the
+same scene and configuration beside its own.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
 script exits with code 2 and prints no result.
@@ -49,10 +69,27 @@ import numpy as np
 
 N_FRAMES = 150
 ATE_LIMIT_M = 0.025
-JAX_CPU_ATE_M = 0.0181       # the JAX package on CPU, same scene and config
+MAINTAIN_EVERY = 8           # bench.py's maintenance cadence on the orbit
+CIRCUIT_ATE_LIMIT_M = 0.12   # tests/test_realtime_loop.py's full-ATE bound
+KIDNAP_TAIL_LIMIT_M = 0.05
+# The JAX package on the CPU, same scenes and configurations, vocab_1e5
+# (cpu_reference.py jax orbit|circuit|kidnap):
+JAX_CPU_ATE_M = 0.016667     # orbit ATE
+JAX_CPU_ORBIT = "3 loops closed of 4 events, 0 relocalizations, 43 bank entries"
+JAX_CPU_CIRCUIT_ATE_M = 0.073159
+JAX_CPU_CIRCUIT = "1 loop closed (to keyframe 0) of 9 events"
+JAX_CPU_KIDNAP_TAIL_M = 0.001680
+JAX_CPU_KIDNAP = "1 relocalization, the last 4 frames tracked"
 MEM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 L2_FLUSH_BYTES = 128 << 20   # written before a cold call: over twice the L2
+# The loop circuit's configuration (bench.py run_loop_event), for either
+# package's config module (circuit_config) and RTLimits (**CIRCUIT_LIMITS).
+CIRCUIT_ORB = dict(max_keypoints=1024, n_levels=4, n_features=1000)
+CIRCUIT_TRACKING = dict(max_frames_between_kf=4,
+                        max_translation_per_frame=0.5)
+CIRCUIT_LIMITS = dict(max_kf=64, spawn_per_kf=256, ba_window=6,
+                      local_window=6, max_frames=256)
 
 # Canvases for the FAST kernel's edges (its tiles are 64 x 32 px): name,
 # H, W, the true extent of each level, and the values in it: "uniform" in
@@ -202,15 +239,112 @@ def _device_ms(torch, fn, n, flush=None):
     return float(np.median(times))
 
 
+def circuit_config(config):
+    """The loop circuit's SystemConfig from ``config``, either package's
+    config module."""
+    return config.SystemConfig(
+        camera=config.CameraConfig(), orb=config.OrbConfig(**CIRCUIT_ORB),
+        tracking=config.TrackingConfig(**CIRCUIT_TRACKING),
+        use_dynamic_filtering=False)
+
+
+def time_dispatches(torch, rt, keep=None):
+    """Time each maintenance dispatch of ``rt`` without draining the card:
+    host ms of the call, CUDA events recorded before and after it, the
+    host's keyframe count, and the event and relocalization counters
+    before and after, kept on the card. ``dispatch_summary`` reads them
+    after the run. ``keep(args, out)``, when given, sees every dispatch."""
+    rec = []
+    step = rt.maint.step
+
+    def timed(st, ms, seed, **kw):
+        a, b = _events(torch)
+        t0 = time.perf_counter()
+        a.record()
+        out = step(st, ms, seed, **kw)
+        b.record()
+        rec.append(((time.perf_counter() - t0) * 1e3, a, b, kw.get("n_kf"),
+                    torch.stack([ms.n_events, ms.n_reloc]),
+                    torch.stack([out[1].n_events, out[1].n_reloc])))
+        if keep is not None:
+            keep((st, ms, seed, kw), out)
+        return out
+
+    rt.maint.step = timed
+    return rec
+
+
+def dispatch_summary(rec):
+    """Count, the keyframe count at the last dispatch, and for host ms and
+    the device span (first to last event) each: the median of the
+    dispatches with no loop event or relocalization, the max, and the
+    values of those with one."""
+    host = np.array([r[0] for r in rec])
+    span = np.array([r[1].elapsed_time(r[2]) for r in rec])
+    event = np.array([bool((r[4] != r[5]).any()) for r in rec])
+    out = {"dispatches": len(rec),
+           "n_kf_at_last": rec[-1][3] if rec else None}
+    for name, ms in (("host", host), ("span", span)):
+        quiet = ms[~event]
+        out[name] = {
+            "no_event_median_ms": float(np.median(quiet)) if quiet.size
+            else float("nan"),
+            "max_ms": float(ms.max()) if ms.size else float("nan"),
+            "event_ms": [round(float(x), 2) for x in ms[event]]}
+    return out
+
+
+def dispatch_line(d):
+    return "; ".join(
+        f"{what}: no-event median {d[k]['no_event_median_ms']:.2f} ms, max "
+        f"{d[k]['max_ms']:.2f} ms, with an event {d[k]['event_ms']} ms"
+        for k, what in (("host", "host"), ("span", "device span")))
+
+
+def loop_scene(device, sched, bias, synthetic, cam):
+    """Frames ``sched`` of the circuit (grey, depth x ``bias``) rendered on
+    the card, and their ground-truth camera centres."""
+    planes = synthetic.six_wall_room(device=device)
+    poses = synthetic.circuit_poses(max(sched) + 1)
+    frames = []
+    for i in sched:
+        g, d = synthetic.render(cam, poses[i], planes)[:2]
+        frames.append((g, d * bias))
+    gt = np.asarray([-poses[i].R.numpy().T @ poses[i].t.numpy()
+                     for i in sched])
+    return frames, gt
+
+
+def run_maintained(rt, frames):
+    """Track ``frames`` (grey, depth pairs on the card) at 30 fps stamps."""
+    for i, (g, d) in enumerate(frames):
+        rt.track(g, d, stamp=i / 30.0)
+    rt.block()
+    return rt.finish()
+
+
+def centres(res):
+    return np.asarray([-R.T @ t for R, t in zip(res["R"], res["t"])])
+
+
+def maint_line(res):
+    return (f"loops closed {res['n_loops_closed']} of "
+            f"{res['n_loop_events']} events (bank {res['n_bank_loops']}), "
+            f"relocalizations {res['n_relocalizations']} (bank "
+            f"{res['n_bank_reloc']}), bank entries {res['bank_entries']}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from coebslam_tpu_torch import config
     from coebslam_tpu_torch.config import SystemConfig
     from coebslam_tpu_torch.eval import ate
     from coebslam_tpu_torch.ops import extractor, fast, fast_cuda
+    from coebslam_tpu_torch.slam import vocabulary
     from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
     from coebslam_tpu_torch.utils import synthetic
 
@@ -230,14 +364,26 @@ def main():
     # ---- 2. kernel vs plain on the card
     cfg = SystemConfig()
     cam = cfg.camera
+    ccfg = circuit_config(config)
     planes = synthetic.make_room(seed=0, device=dev)
     pose = synthetic.camera_trajectory(10, radius=0.35)[3]
     frame = torch.clamp(synthetic.render(cam, pose, planes)[0], 0, 255)
     canv, hw = extractor.level_canvas(frame, cfg.orb)
-    cases = [("main path", canv, hw)] + fast_edge_cases(torch, dev)
+    # The circuit's and the kidnap's first frame, as their path gets it.
+    c_frame = loop_scene(dev, [0], 1.0, synthetic, ccfg.camera)[0][0][0]
+    c_canv, c_hw = extractor.level_canvas(c_frame, ccfg.orb)
+
+    def orb_thrs(orb):
+        return (float(orb.fast_threshold_min),
+                float(orb.fast_threshold_min_masked))
+
+    cases = [("main path", canv, hw, orb_thrs(cfg.orb)),
+             ("circuit and kidnap", c_canv, c_hw, orb_thrs(ccfg.orb))] + [
+        (name, c, ext, (7.0, 10.0))
+        for name, c, ext in fast_edge_cases(torch, dev)]
     max_err = 0.0
-    for name, c, ext in cases:
-        for thr in (7.0, 10.0):
+    for name, c, ext, thrs in cases:
+        for thr in thrs:
             t = torch.tensor(thr, device=dev)
             st_k, sc_k = fast_cuda.strength_and_score(c, t, ext)
             st_p, sc_p = fast.strength_and_score_plain(c, t, ext)
@@ -260,26 +406,36 @@ def main():
     # ---- 3. extractor: kernel path vs plain path on the card
     mask = torch.zeros((cam.height, cam.width), dtype=torch.bool, device=dev)
     mask[:, :200] = True
-    for area in (False, True):
-        kw = dict(dynamic_mask=mask, area_mode=torch.tensor(area, device=dev))
-        fk = extractor.extract(frame, cfg.orb, **kw)
+    runs = [(f"orbit area_mode={area}", frame, cfg.orb,
+             dict(dynamic_mask=mask, area_mode=torch.tensor(area, device=dev)))
+            for area in (False, True)]
+    runs.append(("circuit", c_frame, ccfg.orb, {}))   # no dynamic filtering
+    for name, img, orb, kw in runs:
+        fk = extractor.extract(img, orb, **kw)
         with _plain_fast(fast, fast_cuda):
-            fp = extractor.extract(frame, cfg.orb, **kw)
+            fp = extractor.extract(img, orb, **kw)
         if not torch.equal(fk.valid, fp.valid):
-            _fail("extractor: valid differs between kernel and plain FAST")
+            _fail(f"extractor {name}: valid differs between kernel and "
+                  f"plain FAST")
         uv_err = float((fk.uv - fp.uv).abs().max())
         if uv_err > 1e-4 or not torch.equal(fk.desc, fp.desc):
-            _fail(f"extractor: uv err {uv_err} / descriptors differ")
-        print(f"[3] extractor area_mode={area}: {int(fk.valid.sum())} "
-              f"keypoints, valid equal, uv err {uv_err:g}, desc bit-equal",
-              flush=True)
+            _fail(f"extractor {name}: uv err {uv_err} / descriptors differ")
+        print(f"[3] extractor {name}: {int(fk.valid.sum())} keypoints, valid "
+              f"equal, uv err {uv_err:g}, desc bit-equal", flush=True)
 
     # ---- 4. the main path
     t0 = time.perf_counter()
     G, D, B, C = synthetic.dynamic_orbit(cam, N_FRAMES)
     print(f"[4] rendered {N_FRAMES} frames in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    rt = RealtimeSlam(cfg, RTLimits())
+    t0 = time.perf_counter()
+    voc = vocabulary.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "artifacts", "vocab_1e5.npz"))
+    rt = RealtimeSlam(cfg, RTLimits(), vocabulary=voc,
+                      maintain_every=MAINTAIN_EVERY)
+    dispatches = time_dispatches(torch, rt)
+    print(f"[4] vocabulary loaded and on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     fast_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
     track_frames(rt, (G, D, B), 0, N_FRAMES)
@@ -306,12 +462,22 @@ def main():
           f"{n_syncs} in pass 2 = {n_syncs / N_FRAMES:.2f} per frame "
           f"{sync_sites}; FAST launches {launches} for {n} frames",
           flush=True)
+    orbit_disp = dispatch_summary(dispatches)
+    print(f"[4] maintenance: {maint_line(res)} (JAX package on CPU: "
+          f"{JAX_CPU_ORBIT}); keyframes processed (bow_next) "
+          f"{int(rt.mstate.bow_next)}, keyframes at the last dispatch "
+          f"{orbit_disp['n_kf_at_last']}; dispatches "
+          f"{orbit_disp['dispatches']}; {dispatch_line(orbit_disp)}",
+          flush=True)
     if n != 2 * N_FRAMES or not res["ok"].all():
         _fail(f"{int(res['ok'].sum())}/{n} frames tracked")
     if not np.isfinite(est).all() or rmse >= ATE_LIMIT_M:
         _fail(f"ATE {rmse} m >= {ATE_LIMIT_M} m")
     if launches != n:
         _fail(f"FAST kernel launched {launches} times for {n} frames")
+    if orbit_disp["dispatches"] != n // MAINTAIN_EVERY:
+        _fail(f"maintenance dispatched {orbit_disp['dispatches']} times "
+              f"for {n} frames")
 
     # ---- 5. kernel time beside the plain version and the bound
     thr = torch.tensor(float(cfg.orb.fast_threshold_min), device=dev)
@@ -342,6 +508,68 @@ def main():
           f"{empty_ms:.4f} ms the same way; on {card_line}", flush=True)
     if not all(np.isfinite(t) and t > 0 for t in times):
         _fail(f"FAST times not finite: {times}")
+
+    # ---- 6. the loop circuit (bench.py run_loop_event)
+    clim = RTLimits(**CIRCUIT_LIMITS)
+    n_circ = synthetic.N_CIRCUIT + synthetic.N_OVERLAP
+    frames, gt = loop_scene(dev, range(n_circ), synthetic.DEPTH_BIAS,
+                            synthetic, ccfg.camera)
+    rt = RealtimeSlam(ccfg, clim, vocabulary=voc, maintain_every=1)
+    rec = time_dispatches(torch, rt)
+    fast_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = run_maintained(rt, frames)
+    circ_s = time.perf_counter() - t0
+    circ_launches = fast_cuda.LAUNCHES
+    n = len(res["ok"])
+    rmse = ate.ate_rmse(res["stamps"], centres(res), res["stamps"],
+                        gt)["rmse"]
+    circ_disp = dispatch_summary(rec)
+    applied = [e for e in res["loop_events"] if e["applied"]]
+    print(f"[6] circuit: frames OK {int(res['ok'].sum())}/{n}, ATE "
+          f"{rmse * 100:.3f} cm (limit {CIRCUIT_ATE_LIMIT_M * 100:.0f} cm; "
+          f"JAX package on CPU {JAX_CPU_CIRCUIT_ATE_M * 100:.2f} cm, "
+          f"{JAX_CPU_CIRCUIT}); {maint_line(res)}; keyframes {res['n_kf']}; "
+          f"{n_circ} frames in {circ_s:.1f} s; FAST launches "
+          f"{circ_launches}", flush=True)
+    print(f"[6] events {res['loop_events']}", flush=True)
+    print(f"[6] dispatches {circ_disp['dispatches']}; "
+          f"{dispatch_line(circ_disp)}", flush=True)
+    if not applied or any(e["cand_lid"] > 8 for e in applied):
+        _fail(f"circuit closures: {res['loop_events']}")
+    if not np.isfinite(rmse) or rmse >= CIRCUIT_ATE_LIMIT_M:
+        _fail(f"circuit ATE {rmse} m >= {CIRCUIT_ATE_LIMIT_M} m")
+    if circ_launches != n or circ_disp["dispatches"] != n:
+        _fail(f"circuit: {circ_launches} launches, "
+              f"{circ_disp['dispatches']} dispatches for {n} frames")
+
+    # ---- 7. kidnap relocalization (tests/test_realtime_loop.py)
+    sched = list(range(0, 50)) + list(range(6, 16))
+    frames, gt = loop_scene(dev, sched, 1.0, synthetic, ccfg.camera)
+    rt = RealtimeSlam(ccfg, clim, vocabulary=voc, maintain_every=2)
+    rec = time_dispatches(torch, rt)
+    fast_cuda.LAUNCHES = 0
+    res = run_maintained(rt, frames)
+    kid_launches = fast_cuda.LAUNCHES
+    est = centres(res)
+    n = len(est)
+    tail = slice(n - 5, n)
+    tail_rmse = ate.ate_rmse(res["stamps"][tail], est[tail],
+                             res["stamps"][tail], gt[tail])["rmse"]
+    kid_disp = dispatch_summary(rec)
+    print(f"[7] kidnap: frames OK {int(res['ok'].sum())}/{n}, last 12 "
+          f"{res['ok'][-12:].astype(int).tolist()}, tail ATE "
+          f"{tail_rmse * 100:.3f} cm (limit "
+          f"{KIDNAP_TAIL_LIMIT_M * 100:.0f} cm; JAX package on CPU "
+          f"{JAX_CPU_KIDNAP_TAIL_M * 100:.3f} cm, {JAX_CPU_KIDNAP}); "
+          f"{maint_line(res)}; FAST launches {kid_launches}; dispatches "
+          f"{kid_disp['dispatches']}; {dispatch_line(kid_disp)}", flush=True)
+    if res["n_relocalizations"] < 1 or not res["ok"][-4:].all():
+        _fail("kidnap: no relocalization, or the last frames lost")
+    if not np.isfinite(tail_rmse) or tail_rmse >= KIDNAP_TAIL_LIMIT_M:
+        _fail(f"kidnap tail ATE {tail_rmse} m >= {KIDNAP_TAIL_LIMIT_M} m")
+    if kid_launches != n:
+        _fail(f"kidnap: {kid_launches} launches for {n} frames")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
@@ -355,6 +583,8 @@ def main():
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bound_share": bound_ms / ms, "bytes": n_bytes, "ops": n_ops,
         "library_ms": None,
+        "launches_by_path": {"orbit": launches, "circuit": circ_launches,
+                             "kidnap": kid_launches},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

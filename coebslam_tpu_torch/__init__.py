@@ -1,20 +1,23 @@
 """coebslam_tpu_torch — the PyTorch/CUDA port of coebslam_tpu.
 
 The port runs the zero-sync realtime RGB-D path (extraction, the COEB
-dynamic front-end, tracking, keyframing and windowed BA) as PyTorch code on
-an NVIDIA GPU, with the FAST corner kernel written by hand in CUDA C++
-(``csrc/fast.cu``). Module paths mirror the JAX package so each counterpart
+dynamic front-end, tracking, keyframing and windowed BA) and its
+maintenance program (BoW loop closing, the place bank, relocalization) as
+PyTorch code on an NVIDIA GPU, with the FAST corner kernel written by hand
+in CUDA C++ (``csrc/fast.cu``). Module paths mirror the JAX package so each counterpart
 is found under the same name; this package imports neither JAX nor the JAX
 package.
 
 Sub-packages
 ------------
-geometry   SO3/SE3 Lie-group ops, pinhole camera model
+geometry   SO3/SE3/Sim3 Lie-group ops, pinhole camera model
 ops        pyramid, FAST (+ CUDA kernel), grid selection, BRIEF, matching,
-           fundamental-matrix RANSAC, blur gate
-optim      pose-only Gauss-Newton, Schur-complement local BA
-slam       frame constructor, dynamic front-end, tracking step, realtime loop
-utils      synthetic RGB-D renderer
+           fundamental-matrix RANSAC, blur gate, 3D-3D alignment RANSAC
+optim      pose-only Gauss-Newton, Schur-complement local BA, Sim3 pose
+           graph
+slam       frame constructor, dynamic front-end, tracking step, realtime
+           loop, BoW vocabulary, maintenance program
+utils      synthetic RGB-D renderer (the room, the walker, the loop circuit)
 eval       ATE metric
 """
 

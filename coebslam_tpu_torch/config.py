@@ -151,6 +151,24 @@ class TrackingConfig:
 
 
 @dataclass(frozen=True)
+class LoopConfig:
+    """Loop closing constants (the maintenance program reads
+    ``covisibility_consistency_threshold``, ``min_score_factor`` and
+    ``min_sim3_inliers``)."""
+
+    covisibility_consistency_threshold: int = 3
+    # Scale on the covisibility min-score gate (1.0 = reference semantics).
+    min_score_factor: float = 1.0
+    min_bow_matches: int = 20
+    sim3_ransac_prob: float = 0.99
+    sim3_ransac_min_inliers: int = 20
+    sim3_ransac_iters: int = 300
+    min_sim3_inliers: int = 20
+    min_total_matches: int = 40
+    essential_graph_min_covis: int = 100
+
+
+@dataclass(frozen=True)
 class SystemConfig:
     """The sections of the system configuration that this port reads."""
 
@@ -160,6 +178,7 @@ class SystemConfig:
     matcher: MatcherConfig = field(default_factory=MatcherConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
+    loop: LoopConfig = field(default_factory=LoopConfig)
     sensor: str = "rgbd"
     use_dynamic_filtering: bool = True
 
@@ -177,7 +196,7 @@ def _build(cls, data: dict):
 _SECTIONS = {
     "camera": CameraConfig, "orb": OrbConfig, "dynamic": DynamicConfig,
     "matcher": MatcherConfig, "optimizer": OptimizerConfig,
-    "tracking": TrackingConfig,
+    "tracking": TrackingConfig, "loop": LoopConfig,
 }
 
 

@@ -65,14 +65,15 @@ def epipolar_distance(F, p1, p2):
     return num / torch.clamp(den, min=1e-9)
 
 
-def sample_indices(valid, n_hypotheses: int, generator: torch.Generator):
-    """[H, 8] indices drawn uniformly (with replacement) among valid
+def sample_indices(valid, n_hypotheses: int, generator: torch.Generator,
+                   k: int = 8):
+    """[H, k] indices drawn uniformly (with replacement) among valid
     correspondences — uniform over all when none is valid, as the
     reference's categorical draw over -1e9 logits is."""
     w = valid.to(torch.float32)
     w = torch.where(w.sum() > 0, w, torch.ones_like(w))
     cdf = torch.cumsum(w, 0)
-    u = torch.rand((n_hypotheses, 8), generator=generator,
+    u = torch.rand((n_hypotheses, k), generator=generator,
                    device=valid.device) * cdf[-1]
     idx = torch.searchsorted(cdf, u, right=True)
     return torch.clamp(idx, max=valid.shape[0] - 1)

@@ -14,9 +14,10 @@ Keyframe and point arenas are rings addressed by logical ids exactly as in
 the reference (logical keyframe ``lid`` lives at row ``lid % max_kf``,
 logical point ``lid * S + slot`` at ``pid % (max_kf * S)``); the
 loop-closure reuse window and the bank re-seed window are laid out as there
-and stay inert without the maintenance program (``reuse_lid = -1``,
-``seed_ttl = 0``). Updates are out of place, like the reference's.
-The mono and stereo branches are not part of this slice.
+and are opened by the maintenance program (``slam/maintenance.py``), which
+``RealtimeSlam`` dispatches every few frames when given a vocabulary.
+Updates are out of place, like the reference's. The mono and stereo
+branches are not part of this slice.
 """
 from __future__ import annotations
 
@@ -425,6 +426,14 @@ def rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
       generator / ransac_idx: RANSAC sample source for the dynamic check.
     Reads one device bool (the keyframe decision) to the host.
     """
+    return _rt_step(gray, depth, boxes, st, cfg, lim, generator=generator,
+                    ransac_idx=ransac_idx)[0]
+
+
+def _rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
+             lim: RTLimits, *, generator=None, ransac_idx=None):
+    """``rt_step`` that also returns whether the frame became a keyframe
+    (the host bool it read)."""
     if cfg.sensor != "rgbd":
         raise NotImplementedError(f"sensor {cfg.sensor!r} is not ported yet")
     cam = cfg.camera
@@ -518,7 +527,8 @@ def rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
                      fr_depth=fd.depth, fr_valid=fd.feats.valid,
                      reuse_ttl=torch.clamp(st.reuse_ttl - 1, min=0),
                      seed_ttl=torch.clamp(st.seed_ttl - 1, min=0))
-    if bool(need_kf):                      # the frame's one host sync
+    made_kf = bool(need_kf)                # the frame's one host sync
+    if made_kf:
         st = _create_keyframe(st, fd, spawn_ok, pose, local_ids,
                               local_alive, cfg, lim)
 
@@ -548,7 +558,7 @@ def rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
                      (st.n_kf - 1).to(f32)[None]])
     fi = st.frame_idx % lim.max_frames
     traj = st.traj.index_copy(0, fi.reshape(1), row[None])
-    return st._replace(traj=traj, frame_idx=st.frame_idx + 1)
+    return st._replace(traj=traj, frame_idx=st.frame_idx + 1), made_kf
 
 
 # --------------------------------------------------------------------- #
@@ -557,33 +567,49 @@ def rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
 
 
 class RealtimeSlam:
-    """Host loop around ``rt_step``: ``track()`` uploads one frame and runs
-    its step; ``finish()`` reads the session back.
+    """Host loop around ``rt_step`` (and the optional maintenance program):
+    ``track()`` uploads one frame and runs its step; ``finish()`` reads the
+    session back.
 
     ``device`` defaults to CUDA and there is no CPU fallback: the session
     raises when CUDA is absent unless the caller asks for the CPU.
+    ``vocabulary`` (``slam.vocabulary.Vocabulary``) enables the maintenance
+    program (BoW loop closing, the place bank and relocalization), run
+    after every ``maintain_every``-th frame.
     """
 
     def __init__(self, cfg: SystemConfig, lim: Optional[RTLimits] = None,
-                 device=None):
+                 device=None, vocabulary=None, maintain_every: int = 8):
         device = resolve_device(device, "RealtimeSlam")
         if cfg.sensor != "rgbd":
             raise NotImplementedError(f"sensor {cfg.sensor!r} is not ported yet")
         self.cfg = cfg
         self.lim = lim or RTLimits()
         self.device = device
+        self.maintain_every = max(int(maintain_every), 1)
         self.state = init_state(cfg, self.lim, device)
         self.stamps = []
         self._seed = 0
         self._gen = torch.Generator(device=device)
         self._no_boxes = torch.full((cfg.dynamic.max_boxes, 4), -1.0,
                                     device=device)
+        # Host counts of keyframes made and BoW-processed: the maintenance
+        # program's loop bounds, known without a read.
+        self._n_kf = 0
+        self._bow_next = 0
+        self.maint = None
+        self.mstate = None
+        if vocabulary is not None:
+            from . import maintenance
+            self.maint = maintenance.Maintainer(cfg, self.lim, vocabulary,
+                                                device=device)
+            self.mstate = self.maint.init_state()
 
     def _upload(self, x):
         """Host array -> device tensor. On the card the copy goes through
         pinned memory and does not wait for the queued device work."""
-        if isinstance(x, torch.Tensor) and x.device == self.device:
-            return x
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+            return x.to(self.device)
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
@@ -607,10 +633,18 @@ class RealtimeSlam:
         g = self._upload(gray)
         d = self._upload(depth)
         self._gen.manual_seed(self._seed)
-        self.state = rt_step(g, d, self._boxes(boxes), self.state, self.cfg,
-                             self.lim, generator=self._gen)
+        self.state, made_kf = _rt_step(g, d, self._boxes(boxes), self.state,
+                                       self.cfg, self.lim,
+                                       generator=self._gen)
+        self._n_kf += made_kf
         self.stamps.append(stamp)
         self._seed += 1
+        if self.maint is not None \
+                and len(self.stamps) % self.maintain_every == 0:
+            self.state, self.mstate = self.maint.step(
+                self.state, self.mstate, self._seed, n_kf=self._n_kf,
+                bow_next=self._bow_next)
+            self._bow_next = self._n_kf     # a dispatch processes them all
 
     def block(self) -> None:
         """Wait for all queued device work."""
@@ -634,7 +668,7 @@ class RealtimeSlam:
         kf_lid = np_(st.kf_lid)
         live = kf_lid >= 0
         rows = np.nonzero(live)[0][np.argsort(kf_lid[live])]
-        return {
+        out = {
             "stamps": np.asarray(self.stamps[n_dropped:]),
             "ok": traj[:, 0] > 0.5,
             "R": traj[:, 1:10].reshape(-1, 3, 3),
@@ -661,3 +695,6 @@ class RealtimeSlam:
             "n_assoc": int(st.n_assoc),
             "limits": self.lim,
         }
+        if self.maint is not None:
+            out.update(self.maint.report(self.mstate))
+        return out

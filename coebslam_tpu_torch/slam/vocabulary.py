@@ -1,0 +1,156 @@
+"""Binary BoW vocabulary: hierarchical k-means tree over ORB descriptors.
+
+Counterpart of the load/transform half of ``coebslam_tpu/slam/
+vocabulary.py`` (DBoW2's ``TemplatedVocabulary<FORB>``): a branching-k,
+depth-L tree of binary centroids with tf-idf weights and L1 scoring.
+Descriptors descend the tree level by level as a gather + Hamming argmin
+over the node's children. A ``Vocabulary`` holds numpy arrays, field for
+field as in the JAX package, so one loaded there carries over as
+``Vocabulary(*jax_voc)``. Training and the ORBvoc text format are not
+ported.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import brief
+
+
+class Vocabulary(NamedTuple):
+    """Flat-array vocabulary tree.
+
+    Nodes are stored in breadth-first order; node 0 is the root (its
+    descriptor is unused). ``children[i]`` lists up to k child node ids
+    (-1 padded). Leaves carry word ids; internal nodes -1.
+    """
+    node_desc: np.ndarray       # [n_nodes, 32] uint8
+    children: np.ndarray        # [n_nodes, k] int32
+    word_id: np.ndarray         # [n_nodes] int32 (-1 internal)
+    word_weight: np.ndarray     # [n_words] float32 (idf)
+    node_level: np.ndarray      # [n_nodes] int32
+    depth: int
+    branching: int
+
+    @property
+    def n_words(self) -> int:
+        return len(self.word_weight)
+
+
+class DeviceVocabulary(NamedTuple):
+    """The tensors the descent reads, on one device (``to_device``)."""
+    node_bits: torch.Tensor     # [n_nodes, 256] uint8
+    children: torch.Tensor      # [n_nodes, k] int64
+    word_id: torch.Tensor       # [n_nodes] int64
+    word_weight: torch.Tensor   # [n_words] float32
+    depth: int
+
+
+def _unpack(desc_u8: np.ndarray) -> np.ndarray:
+    return np.unpackbits(desc_u8, axis=1, bitorder="little")
+
+
+def to_device(voc: Vocabulary, device) -> DeviceVocabulary:
+    """Unpacked node bits, children, word ids and weights on ``device``."""
+    dev = torch.device(device)
+    return DeviceVocabulary(
+        torch.from_numpy(_unpack(voc.node_desc)).to(dev),
+        torch.from_numpy(np.asarray(voc.children, np.int64)).to(dev),
+        torch.from_numpy(np.asarray(voc.word_id, np.int64)).to(dev),
+        torch.from_numpy(np.asarray(voc.word_weight, np.float32)).to(dev),
+        int(voc.depth))
+
+
+def transform_host(voc: Vocabulary, descriptors: np.ndarray,
+                   group_up_levels: int = 4
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host (numpy) descent, the oracle of the tensor descent.
+
+    Returns (word ids [N], group-node ids [N] at depth-``group_up_levels``).
+    """
+    bits = _unpack(descriptors)
+    node_bits = _unpack(voc.node_desc)
+    n = len(descriptors)
+    cur = np.zeros(n, np.int32)
+    group = np.zeros(n, np.int32)
+    group_level = max(voc.depth - group_up_levels, 1)
+    for level in range(voc.depth):
+        ch = voc.children[cur]                       # [N, k]
+        has_child = (ch >= 0).any(1)
+        cb = node_bits[np.clip(ch, 0, None)]         # [N, k, 256]
+        d = (bits[:, None, :] != cb).sum(-1)
+        d = np.where(ch >= 0, d, 1 << 30)
+        nxt = np.take_along_axis(ch, d.argmin(1)[:, None], 1)[:, 0]
+        cur = np.where(has_child, nxt, cur).astype(np.int32)
+        if level + 1 == group_level:
+            group = cur.copy()
+    return voc.word_id[cur], group
+
+
+def descend(dv: DeviceVocabulary, desc_u8, group_level: int = 0):
+    """Tensor descent of [N, 32] uint8 descriptors.
+
+    Returns (leaf node ids [N], node ids at ``group_level`` [N]; zeros when
+    ``group_level`` is 0). Ties go to the lowest child, as ``argmin`` does
+    in both packages.
+    """
+    bits = brief.unpack_bits(desc_u8)                # [N, 256]
+    cur = torch.zeros(desc_u8.shape[0], dtype=torch.int64,
+                      device=desc_u8.device)
+    group = cur
+    for level in range(dv.depth):
+        ch = dv.children[cur]                        # [N, k]
+        cb = dv.node_bits[torch.clamp(ch, min=0)]    # [N, k, 256]
+        d = torch.sum(bits[:, None, :] != cb, dim=-1)
+        d = torch.where(ch >= 0, d, torch.full_like(d, 1 << 30))
+        nxt = torch.take_along_dim(ch, torch.argmin(d, 1)[:, None], 1)[:, 0]
+        cur = torch.where((ch >= 0).any(1), nxt, cur)
+        if level + 1 == group_level:
+            group = cur
+    return cur, group
+
+
+def transform_words(dv: DeviceVocabulary, desc_u8, valid,
+                    group_up_levels: int = 4):
+    """Batched descent returning (word ids [N] (-1 invalid), group ids
+    [N] at depth-``group_up_levels``).
+
+    Args:
+      dv: the vocabulary on the descriptors' device (``to_device``).
+      desc_u8: [N, 32] uint8.
+      valid: [N] bool.
+    """
+    cur, group = descend(dv, desc_u8, max(dv.depth - group_up_levels, 1))
+    neg = torch.full_like(cur, -1)
+    return (torch.where(valid, dv.word_id[cur], neg),
+            torch.where(valid, group, neg))
+
+
+def transform(dv: DeviceVocabulary, desc_u8, valid,
+              group_up_levels: int = 4):
+    """``transform_words`` plus the tf-idf BoW vector [n_words] float32,
+    L1-normalized: (word ids, group ids, BoW)."""
+    words, group = transform_words(dv, desc_u8, valid, group_up_levels)
+    w_ok = valid & (words >= 0)
+    wc = torch.clamp(words, min=0)
+    bow = torch.zeros(dv.word_weight.shape[0], dtype=torch.float32,
+                      device=desc_u8.device).index_add_(
+        0, wc, torch.where(w_ok, dv.word_weight[wc], 0.0))
+    norm = torch.clamp(torch.sum(torch.abs(bow)), min=1e-9)
+    return words, group, bow / norm
+
+
+def l1_score(bow_a, bow_b):
+    """DBoW2 L1 similarity: 1 - 0.5 * |va - vb|_1 on L1-normalized vectors
+    (the metric behind min-score gating)."""
+    return 1.0 - 0.5 * torch.sum(torch.abs(bow_a - bow_b), dim=-1)
+
+
+def load(path: str) -> Vocabulary:
+    """A vocabulary saved as .npz by the JAX package's ``save``."""
+    z = np.load(path)
+    return Vocabulary(z["node_desc"], z["children"], z["word_id"],
+                      z["word_weight"], z["node_level"],
+                      int(z["meta"][0]), int(z["meta"][1]))

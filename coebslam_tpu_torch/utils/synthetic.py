@@ -222,3 +222,38 @@ def dynamic_orbit(cam: CameraConfig, n_frames: int = 150, device=None):
         boxes.append(b.cpu().numpy().astype(np.float32))
     centres = np.asarray([-p.R.numpy().T @ p.t.numpy() for p in poses])
     return gray, depth, boxes, centres
+
+
+# The loop-closing scene: a camera circuit in a closed six-wall room.
+N_CIRCUIT = 96       # frames for the full circuit
+N_OVERLAP = 14       # frames past closure (re-visiting the start)
+DEPTH_BIAS = 1.06    # systematic depth scale error -> translation drift
+
+
+def six_wall_room(seed: int = 0, size: float = 6.0, height: float = 2.5,
+                  device=None) -> Tuple[Plane, ...]:
+    """``make_room`` plus a front wall, so a full yaw circuit always sees
+    texture, on ``device`` (default CUDA)."""
+    device = resolve_device(device, "six_wall_room")
+    planes = list(make_room(seed=seed, size=size, height=height,
+                            device=device))
+    rng = np.random.RandomState(seed + 7)
+    s, h = size / 2.0, height / 2.0
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    front = Plane(f([-s, -h, -s]), f([size, 0, 0]), f([0, height, 0]),
+                  torch.from_numpy(_smooth_noise(rng)).to(device))
+    return tuple(planes + [front])
+
+
+def circuit_poses(n: int) -> list:
+    """World-to-camera poses (SE3 of float32 CPU tensors) with centres on a
+    circle of radius 1 m, facing along the direction of travel: views
+    diverge over the circuit and re-align after N_CIRCUIT frames."""
+    poses = []
+    for i in range(n):
+        a = 2.0 * np.pi * (i % N_CIRCUIT) / N_CIRCUIT
+        c = np.array([np.sin(a), 0.0, -np.cos(a)], np.float32)
+        Rcw = _rot_y(a).astype(np.float32).T
+        poses.append(SE3(torch.from_numpy(np.ascontiguousarray(Rcw)),
+                         torch.from_numpy(np.ascontiguousarray(-Rcw @ c))))
+    return poses

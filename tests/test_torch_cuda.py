@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels against
-their plain PyTorch versions, on the card. Without a card they skip.
+their plain PyTorch versions, and the maintenance program against its CPU
+run, on the card. Without a card they skip.
 
 They import neither JAX nor the JAX package, so they also run on a machine
 that has only PyTorch (``--noconftest`` skips the JAX set-up of
@@ -8,6 +9,7 @@ that has only PyTorch (``--noconftest`` skips the JAX set-up of
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 import ctypes
+import pathlib
 
 import numpy as np
 import pytest
@@ -139,3 +141,103 @@ def test_extract_kernel_path_matches_plain(card, frame, monkeypatch):
         assert torch.equal(fk.valid, fp.valid) and int(fk.valid.sum()) > 500
         assert float((fk.uv - fp.uv).abs().max()) <= 1e-4
         assert torch.equal(fk.desc, fp.desc)
+
+
+# --------------------------------------------------------------------- #
+# the maintenance program on the card against the CPU
+# --------------------------------------------------------------------- #
+
+MAINT_CAM = dict(width=320, height=240, fx=267.7, fy=269.6, cx=160.05,
+                 cy=123.8)
+MAINT_LIM = dict(max_kf=8, spawn_per_kf=256, ba_window=4, local_window=3,
+                 max_frames=64, seed_slots=64, bank_cap=16,
+                 bank_landmarks=64)
+
+
+@pytest.fixture(scope="module")
+def maint_session(card):
+    """A CPU session of the 320x240 room out along the orbit and back to
+    its first pose (as in tests/test_torch_maintenance.py), its keyframes
+    BoW-processed, then marked lost."""
+    from coebslam_tpu_torch.config import CameraConfig, OrbConfig, \
+        TrackingConfig
+    from coebslam_tpu_torch.slam import maintenance as tm, realtime as trt, \
+        vocabulary as tvoc
+    cfg = SystemConfig(camera=CameraConfig(**MAINT_CAM),
+                       orb=OrbConfig(n_levels=4, max_keypoints=1024),
+                       tracking=TrackingConfig(max_frames_between_kf=3))
+    lim = trt.RTLimits(**MAINT_LIM)
+    voc = tvoc.load(str(pathlib.Path(__file__).resolve().parents[1]
+                        / "artifacts" / "vocab_1e5.npz"))
+    planes = synthetic.make_room(seed=0, device="cpu")
+    poses = synthetic.camera_trajectory(40, radius=0.35)
+    rt = trt.RealtimeSlam(cfg, lim, device="cpu")
+    for k, i in enumerate((0, 2, 4, 6, 8, 10, 12, 14, 12, 10, 8, 6, 4, 2,
+                           0)):
+        g, d = synthetic.render(cfg.camera, poses[i], planes)[:2]
+        rt.track(torch.clamp(g, 0, 255).to(torch.uint8),
+                 (d * cfg.camera.depth_map_factor).to(torch.int32), k / 30.0)
+    maint = tm.Maintainer(cfg, lim, voc, device="cpu")
+    st, ms = maint.step(rt.state, maint.init_state(), 0,
+                        n_kf=int(rt.state.n_kf), bow_next=0,
+                        sampler=_fixed_sampler)
+    st = st._replace(n_lost=torch.full_like(st.n_lost, tm.RELOC_AFTER_LOST),
+                     track=st.track._replace(ok=torch.zeros_like(
+                         st.track.ok)))
+    return cfg, lim, voc, st, ms
+
+
+def _fixed_sampler(tag, valid):
+    """Draws that depend only on the tag and the valid mask, made on the
+    CPU, so the card and the CPU solve from the same hypotheses."""
+    from coebslam_tpu_torch.ops.fundamental import sample_indices
+    g = torch.Generator().manual_seed(sum(map(ord, repr(tag))))
+    return sample_indices(valid.cpu(), 256, g, k=3)
+
+
+def _to(tree, dev):
+    return torch.utils._pytree.tree_map(lambda x: x.to(dev), tree)
+
+
+def _assert_maint_close(a, b):
+    """Equal decisions and integer state; floats within 1e-4 (points
+    within 1e-3 where valid on both)."""
+    for x, y in zip(torch.utils._pytree.tree_leaves(a),
+                    torch.utils._pytree.tree_leaves(b)):
+        x, y = x.cpu(), y.cpu()
+        if x.dtype.is_floating_point:
+            if x.dim() == 2 and x.shape[-1] == 3 and x.shape[0] > 1000:
+                continue                      # points: checked below
+            assert torch.allclose(x, y, atol=1e-4), (x - y).abs().max()
+        else:
+            assert torch.equal(x, y)
+    both = a[0].pt_valid.cpu() & b[0].pt_valid.cpu()
+    assert (a[0].pt_pos.cpu()[both] - b[0].pt_pos.cpu()[both]).abs().max() \
+        <= 1e-3
+
+
+def test_maintenance_step_on_card_matches_cpu(card, maint_session):
+    """One dispatch on the lost state (ring relocalization), and a ring
+    closure of the newest keyframe against the first, on the card and on
+    the CPU from the same state and draws."""
+    from coebslam_tpu_torch.slam import maintenance as tm
+    cfg, lim, voc, st, ms = maint_session
+    n_kf = int(st.n_kf)
+    outs = []
+    for dev in ("cpu", card):
+        maint = tm.Maintainer(cfg, lim, voc, device=dev)
+        s, m = _to(st, dev), _to(ms, dev)
+        r = maint.step(s, m, 1, n_kf=n_kf, bow_next=n_kf,
+                       sampler=_fixed_sampler)
+        c = tm._close_loop(
+            s._replace(track=s.track._replace(ok=torch.ones_like(
+                s.track.ok))), m, n_kf - 1,
+            torch.zeros((), dtype=torch.int64, device=dev),
+            torch.full((), 0.5, device=dev), cfg, lim,
+            lambda valid: _fixed_sampler(("loop", n_kf - 1), valid).to(
+                valid.device))
+        outs.append((r, c))
+    (r_cpu, c_cpu), (r_gpu, c_gpu) = outs
+    assert int(r_cpu[1].n_reloc) == 1 and int(c_cpu[1].n_loops) == 1
+    _assert_maint_close(r_cpu, r_gpu)
+    _assert_maint_close(c_cpu, c_gpu)

@@ -127,7 +127,7 @@ def test_config_from_dict_matches_jax_config():
     for j, t in ((jcfg.SystemConfig(), tcfg.SystemConfig()),
                  (jc, tcfg.config_from_dict(dataclasses.asdict(jc)))):
         for sec in ("camera", "orb", "dynamic", "matcher", "optimizer",
-                    "tracking"):
+                    "tracking", "loop"):
             tsec = dataclasses.asdict(getattr(t, sec))
             jsec = dataclasses.asdict(getattr(j, sec))
             assert tsec == {k: jsec[k] for k in tsec}, sec

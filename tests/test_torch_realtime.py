@@ -20,7 +20,7 @@ from coebslam_tpu.slam import realtime as jrt
 from coebslam_tpu.utils import synthetic as jsyn
 from coebslam_tpu_torch import config as tcfg
 from coebslam_tpu_torch.eval import ate as tate
-from coebslam_tpu_torch.slam import realtime as trt
+from coebslam_tpu_torch.slam import maintenance as tmaint, realtime as trt
 from coebslam_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(1)
@@ -159,7 +159,10 @@ def test_renderer_matches():
     lambda: tsyn.make_room(seed=0),
     lambda: tsyn.make_walker(),
     lambda: tsyn.dynamic_orbit(tcfg.CameraConfig(), 1),
-], ids=["RealtimeSlam", "make_room", "make_walker", "dynamic_orbit"])
+    lambda: tmaint.Maintainer(tcfg.SystemConfig(), trt.RTLimits(), None),
+    lambda: tsyn.six_wall_room(),
+], ids=["RealtimeSlam", "make_room", "make_walker", "dynamic_orbit",
+        "Maintainer", "six_wall_room"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """With no device given, an entry point runs on CUDA, and raises where
     CUDA is absent: there is no CPU fallback."""
