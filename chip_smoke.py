@@ -51,8 +51,29 @@ Phases (each one failing the run with a non-zero exit when it fails):
   7. Kidnap relocalization (tests/test_realtime_loop.py): frames 0-49 of
      the circuit, then 6-15 again, maintenance every 2 frames. At least one
      relocalization, the last 4 frames tracked, ATE of the last 5 < 5 cm.
-Each maintained phase prints the JAX package's result on the CPU for the
-same scene and configuration beside its own.
+  8. The orbit, self-detect (bench.py run_realtime_selfdetect, one pass
+     of the 150 frames): no ground-truth boxes; RealtimeSlam(detector=,
+     detect_every=3) with the walker detector (artifacts/
+     detector_walker.npz, width 0.25, 320x320 input, one class, conf 0.4,
+     boxes dilated 25 %). Every frame tracked, ATE < 5 cm, one FAST launch
+     per frame and 50 detections; prints host syncs per frame, fps and the
+     mean best IoU of the detector's boxes with the walker's on every 10th
+     frame.
+  9. The detector alone, at full width (DetectorConfig(): yolov5s, 80
+     classes, 640x640, seeded random weights) and at the walker's width:
+     the card's raw heads against the port's CPU forward with the same
+     weights on one orbit frame (rtol 1e-3, atol 1e-3; cuDNN sums in
+     another order), the largest box and score difference, the device ms
+     of one detect_device (median of 50, queued behind a device-side
+     sleep), the device kernels per detection (torch.profiler) and the
+     convolutions' operations.
+ 10. Handoff and offline global BA of the sessions of [4] and [6]:
+     to_arena, GlobalBA.run (the body of handoff.refine), keyframe ATE
+     before and after, refined_trajectory's ATE against the realtime one.
+     The orbit's refined keyframe ATE < 2 cm; the circuit's refined
+     trajectory below its realtime ATE and under 12 cm.
+Each of [4] and [6]-[10] prints the JAX package's result on the CPU for the
+same scene and configuration beside its own, and the peak device memory.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
 script exits with code 2 and prints no result.
@@ -80,6 +101,23 @@ JAX_CPU_CIRCUIT_ATE_M = 0.073159
 JAX_CPU_CIRCUIT = "1 loop closed (to keyframe 0) of 9 events"
 JAX_CPU_KIDNAP_TAIL_M = 0.001680
 JAX_CPU_KIDNAP = "1 relocalization, the last 4 frames tracked"
+# [8]: one pass of the orbit, self-detect (cpu_reference.py jax selfdetect).
+JAX_CPU_SELFDETECT = dict(ok=150, ate_m=0.012281, n_kf=34, detections=50,
+                          box_iou=0.643881)
+SELFDETECT_ATE_LIMIT_M = 0.05
+# [10]: handoff and global BA of [4]'s and [6]'s sessions
+# (cpu_reference.py jax refine orbit|circuit).
+JAX_CPU_REFINE = {
+    "orbit": dict(arena_keyframes=44, arena_points=4348, truncated_obs=11,
+                  gba_s=16.14, kf_ate_realtime_m=0.015995,
+                  kf_ate_refined_m=0.004895, ate_realtime_m=0.016667,
+                  ate_refined_m=0.008272),
+    "circuit": dict(arena_keyframes=46, arena_points=8127, truncated_obs=0,
+                    gba_s=12.27, kf_ate_realtime_m=0.069154,
+                    kf_ate_refined_m=0.061591, ate_realtime_m=0.073159,
+                    ate_refined_m=0.062603),
+}
+REFINED_KF_ATE_LIMIT_M = 0.02    # tests/test_handoff.py
 MEM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 L2_FLUSH_BYTES = 128 << 20   # written before a cold call: over twice the L2
@@ -90,6 +128,12 @@ CIRCUIT_TRACKING = dict(max_frames_between_kf=4,
                         max_translation_per_frame=0.5)
 CIRCUIT_LIMITS = dict(max_kf=64, spawn_per_kf=256, ba_window=6,
                       local_window=6, max_frames=256)
+# The self-detect orbit (bench.py _own_detector, run_realtime_selfdetect).
+DETECTOR_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "artifacts", "detector_walker.npz")
+WALKER_DETECTOR = dict(num_classes=1, input_size=320, conf_threshold=0.4)
+WALKER_DILATE = 0.25
+DETECT_EVERY = 3
 
 # Canvases for the FAST kernel's edges (its tiles are 64 x 32 px): name,
 # H, W, the true extent of each level, and the values in it: "uniform" in
@@ -327,11 +371,103 @@ def centres(res):
     return np.asarray([-R.T @ t for R, t in zip(res["R"], res["t"])])
 
 
+def walker_detector(config, detector_mod, dyn_cfg, **kw):
+    """bench.py's own detector (_own_detector) from either package's
+    ``config`` and ``models.detector``: the reduced-width YOLOv5 trained
+    on the synthetic walker, ``artifacts/detector_walker.npz``."""
+    variables, meta = detector_mod.load_variables_npz(DETECTOR_PATH)
+    dcfg = config.DetectorConfig(width_multiple=float(meta["width"]),
+                                 **WALKER_DETECTOR)
+    return detector_mod.YoloDetector(dcfg, dyn_cfg, variables=variables,
+                                     dilate=WALKER_DILATE, **kw)
+
+
+def mean_best_iou(detect, gray, gt_boxes):
+    """bench.py score_selfdetect's box IoU: on every 10th frame, the best
+    IoU of ``detect(gray)``'s boxes with the ground-truth walker box,
+    averaged over those frames."""
+    ious = []
+    for i in range(0, len(gray), 10):
+        g = np.asarray(gt_boxes[i]).reshape(4)
+        best = 0.0
+        for b in np.asarray(detect(gray[i])).reshape(-1, 4):
+            inter = np.prod(np.maximum(np.minimum(b[2:], g[2:])
+                                       - np.maximum(b[:2], g[:2]), 0))
+            union = np.prod(b[2:] - b[:2]) + np.prod(g[2:] - g[:2]) - inter
+            best = max(best, float(inter / max(union, 1e-9)))
+        ious.append(best)
+    return float(np.mean(ious))
+
+
+def refine_report(res, arena, kf_ids, gt, ate, handoff):
+    """Accuracy of a refined session (either package's ``eval.ate`` and
+    ``slam.handoff``): keyframe ATE before and after global BA, and the
+    full trajectory's realtime ATE beside ``refined_trajectory``'s. ``gt``
+    holds the ground-truth camera centre of every frame of the session."""
+    frames = np.asarray(res["kf_frame"]) - res.get("frames_dropped", 0)
+    kf_ids = np.asarray(kf_ids)
+    kf_st = frames / 30.0
+
+    def kf_ate(R, t):
+        c = -np.einsum("kji,kj->ki", R, t)
+        return float(ate.ate_rmse(kf_st, c, kf_st, gt[frames])["rmse"])
+
+    n = len(res["R"])
+    st = np.arange(n) / 30.0
+    traj = handoff.refined_trajectory(res, arena, kf_ids)
+    c_ref = -np.einsum("nji,nj->ni", traj[:, :, :3], traj[:, :, 3])
+    return {
+        "arena_keyframes": int(len(arena.valid_keyframes())),
+        "arena_points": int(len(arena.valid_points())),
+        "kf_ate_realtime_m": kf_ate(np.asarray(res["kf_R"]),
+                                    np.asarray(res["kf_t"])),
+        "kf_ate_refined_m": kf_ate(arena.kf_R[kf_ids], arena.kf_t[kf_ids]),
+        "ate_realtime_m": float(ate.ate_rmse(st, centres(res), st,
+                                             gt[:n])["rmse"]),
+        "ate_refined_m": float(ate.ate_rmse(st, c_ref, st, gt[:n])["rmse"]),
+    }
+
+
 def maint_line(res):
     return (f"loops closed {res['n_loops_closed']} of "
             f"{res['n_loop_events']} events (bank {res['n_bank_loops']}), "
             f"relocalizations {res['n_relocalizations']} (bank "
             f"{res['n_bank_reloc']}), bank entries {res['bank_entries']}")
+
+
+def conv_flops(torch, model, x):
+    """Multiply-add operations (x2) of the model's convolutions on ``x``."""
+    total = [0]
+
+    def hook(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.weight[0].numel()
+
+    hs = [m.register_forward_hook(hook) for m in model.modules()
+          if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(x)
+    for h in hs:
+        h.remove()
+    return total[0]
+
+
+def device_kernels(torch, fn):
+    """Device events (kernels, copies, fills) of one call of ``fn``, from
+    torch.profiler, and the sum of their times in ms."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def peak_mib(torch):
+    """Peak device memory since the last reset, in MiB; resets it."""
+    mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    return mib
 
 
 def main():
@@ -343,8 +479,10 @@ def main():
     from coebslam_tpu_torch import config
     from coebslam_tpu_torch.config import SystemConfig
     from coebslam_tpu_torch.eval import ate
+    from coebslam_tpu_torch.models import detector as detector_mod, yolov5
     from coebslam_tpu_torch.ops import extractor, fast, fast_cuda
-    from coebslam_tpu_torch.slam import vocabulary
+    from coebslam_tpu_torch.slam import handoff, vocabulary
+    from coebslam_tpu_torch.slam.global_ba import GlobalBA
     from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
     from coebslam_tpu_torch.utils import synthetic
 
@@ -437,6 +575,7 @@ def main():
     print(f"[4] vocabulary loaded and on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
     t0 = time.perf_counter()
     track_frames(rt, (G, D, B), 0, N_FRAMES)
     pass1_s = time.perf_counter() - t0
@@ -478,6 +617,8 @@ def main():
     if orbit_disp["dispatches"] != n // MAINTAIN_EVERY:
         _fail(f"maintenance dispatched {orbit_disp['dispatches']} times "
               f"for {n} frames")
+    print(f"[4] peak device memory {peak_mib(torch):.1f} MiB", flush=True)
+    sessions = {"orbit": (cfg, res, gt)}
 
     # ---- 5. kernel time beside the plain version and the bound
     thr = torch.tensor(float(cfg.orb.fast_threshold_min), device=dev)
@@ -517,6 +658,7 @@ def main():
     rt = RealtimeSlam(ccfg, clim, vocabulary=voc, maintain_every=1)
     rec = time_dispatches(torch, rt)
     fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
     t0 = time.perf_counter()
     res = run_maintained(rt, frames)
     circ_s = time.perf_counter() - t0
@@ -542,6 +684,8 @@ def main():
     if circ_launches != n or circ_disp["dispatches"] != n:
         _fail(f"circuit: {circ_launches} launches, "
               f"{circ_disp['dispatches']} dispatches for {n} frames")
+    print(f"[6] peak device memory {peak_mib(torch):.1f} MiB", flush=True)
+    sessions["circuit"] = (ccfg, res, gt)
 
     # ---- 7. kidnap relocalization (tests/test_realtime_loop.py)
     sched = list(range(0, 50)) + list(range(6, 16))
@@ -549,6 +693,7 @@ def main():
     rt = RealtimeSlam(ccfg, clim, vocabulary=voc, maintain_every=2)
     rec = time_dispatches(torch, rt)
     fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
     res = run_maintained(rt, frames)
     kid_launches = fast_cuda.LAUNCHES
     est = centres(res)
@@ -570,6 +715,130 @@ def main():
         _fail(f"kidnap tail ATE {tail_rmse} m >= {KIDNAP_TAIL_LIMIT_M} m")
     if kid_launches != n:
         _fail(f"kidnap: {kid_launches} launches for {n} frames")
+    print(f"[7] peak device memory {peak_mib(torch):.1f} MiB", flush=True)
+
+    # ---- 8. the orbit, self-detect (bench.py run_realtime_selfdetect)
+    det = walker_detector(config, detector_mod, cfg.dynamic)
+    # Its first call (cuDNN's algorithm choice) stays out of the run.
+    det.detect_device(torch.from_numpy(G[0]).to(dev))
+    det.dispatches = 0
+    rt = RealtimeSlam(cfg, RTLimits(), detector=det,
+                      detect_every=DETECT_EVERY)
+    fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
+    with count_host_syncs(torch) as sd_sites:
+        t0 = time.perf_counter()
+        for i in range(N_FRAMES):
+            rt.track(G[i], D[i], stamp=i / 30.0)
+        rt.block()
+        sd_s = time.perf_counter() - t0
+    sd_launches = fast_cuda.LAUNCHES
+    sd_syncs = sum(sd_sites.values())
+    sd_mem = peak_mib(torch)
+    res = rt.finish()
+    n = len(res["ok"])
+    rmse = ate.ate_rmse(res["stamps"], centres(res), np.arange(n) / 30.0,
+                        C[:n])["rmse"]
+    iou = mean_best_iou(det.detect, G, B)
+    j = JAX_CPU_SELFDETECT
+    print(f"[8] self-detect (one pass; JAX package on CPU in brackets): "
+          f"frames OK {int(res['ok'].sum())}/{n} ({j['ok']}/{N_FRAMES}), "
+          f"ATE {rmse * 100:.3f} cm ({j['ate_m'] * 100:.3f}; limit "
+          f"{SELFDETECT_ATE_LIMIT_M * 100:.0f} cm), keyframes {res['n_kf']} "
+          f"({j['n_kf']}), detections dispatched {det.dispatches} "
+          f"({j['detections']}), box IoU {iou:.4f} ({j['box_iou']:.4f}); "
+          f"host syncs {sd_syncs} = {sd_syncs / n:.2f} per frame "
+          f"{sd_sites}; FAST launches {sd_launches}; {N_FRAMES} frames in "
+          f"{sd_s:.1f} s ({N_FRAMES / sd_s:.2f} fps); peak device memory "
+          f"{sd_mem:.1f} MiB", flush=True)
+    if n != N_FRAMES or int(res["ok"].sum()) < j["ok"]:
+        _fail(f"self-detect: {int(res['ok'].sum())}/{n} frames tracked")
+    if not np.isfinite(rmse) or rmse >= SELFDETECT_ATE_LIMIT_M:
+        _fail(f"self-detect ATE {rmse} m >= {SELFDETECT_ATE_LIMIT_M} m")
+    if sd_launches != n or det.dispatches != -(-n // DETECT_EVERY):
+        _fail(f"self-detect: {sd_launches} launches, {det.dispatches} "
+              f"detections for {n} frames")
+
+    # ---- 9. the detector alone, full width and walker width
+    g_cpu = torch.from_numpy(G[N_FRAMES // 2])
+    g_dev = g_cpu.to(dev)
+    full = config.DetectorConfig()
+    weights = yolov5.init_random(
+        yolov5.YoloV5s(full.num_classes), torch.Generator().manual_seed(0),
+        calib=detector_mod.preprocess(torch.from_numpy(G[0]),
+                                      full.input_size)).state_dict()
+    # Random weights put many scores in near-ties, which rounding may
+    # reorder: their boxes are printed, the trained detector's are held.
+    for name, trained, make in (
+            ("yolov5s (DetectorConfig(), seeded random weights calibrated "
+             "on frame 0)", False,
+             lambda d: detector_mod.YoloDetector(
+                 full, cfg.dynamic, variables=weights, device=d)),
+            ("walker (detector_walker.npz)", True,
+             lambda d: walker_detector(config, detector_mod, cfg.dynamic,
+                                       device=d))):
+        on_cpu, on_dev = make("cpu"), make(dev)
+        h_cpu, h_dev = on_cpu.heads(g_cpu), on_dev.heads(g_dev)
+        head_err = max(float((a.cpu() - b).abs().max())
+                       for a, b in zip(h_dev, h_cpu))
+        heads_ok = all(torch.allclose(a.cpu(), b, rtol=1e-3, atol=1e-3)
+                       for a, b in zip(h_dev, h_cpu))
+        r_cpu, r_dev = on_cpu.run(g_cpu), on_dev.run(g_dev)
+        box_err = float((r_dev[0].cpu() - r_cpu[0]).abs().max())
+        score_err = float((r_dev[1].cpu() - r_cpu[1]).abs().max())
+        n_valid = (int((r_dev[0][:, 0] >= 0).sum()),
+                   int((r_cpu[0][:, 0] >= 0).sum()))
+        peak_mib(torch)
+        det_ms = _device_ms(torch, lambda: on_dev.detect_device(g_dev), 50)
+        n_kern, kern_ms = device_kernels(
+            torch, lambda: on_dev.detect_device(g_dev))
+        size = on_dev.cfg.input_size
+        flops = conv_flops(torch, on_dev.model,
+                           torch.zeros((1, 3, size, size), device=dev))
+        n_par = sum(p.numel() for p in on_dev.model.parameters())
+        print(f"[9] detector {name}: {n_par} parameters, input {size}^2, "
+              f"{flops / 1e9:.2f} GFLOP of convolution (fp32 bound "
+              f"{flops / FP32_OPS_PER_S * 1e3:.4f} ms); card vs CPU: heads "
+              f"max abs diff {head_err:.3g} (rtol 1e-3, atol 1e-3), boxes "
+              f"{box_err:.3g} px, scores {score_err:.3g}, valid rows "
+              f"{n_valid[0]} / {n_valid[1]}; detect_device {det_ms:.4f} ms "
+              f"on the card (median of 50, queued behind a device-side "
+              f"sleep), {n_kern} device kernels per detection "
+              f"({kern_ms:.4f} ms of kernel time, profiled); peak device "
+              f"memory {peak_mib(torch):.1f} MiB; on {card_line}",
+              flush=True)
+        if not heads_ok or (trained and (n_valid[0] != n_valid[1]
+                                         or box_err > 0.5)):
+            _fail(f"detector {name}: card and CPU differ")
+        if not (np.isfinite(det_ms) and det_ms > 0):
+            _fail(f"detector {name}: time {det_ms}")
+
+    # ---- 10. handoff and offline global BA of [4]'s and [6]'s sessions
+    for name, (scfg, sres, sgt) in sessions.items():
+        t0 = time.perf_counter()
+        arena, kf_ids = handoff.to_arena(sres, scfg)
+        t1 = time.perf_counter()
+        gba = GlobalBA(scfg)
+        n_opt = gba.run(arena)
+        t2 = time.perf_counter()
+        rep = refine_report(sres, arena, kf_ids, sgt, ate, handoff)
+        rep.update(truncated_obs=gba.truncated_obs, gba_s=t2 - t1)
+        j = JAX_CPU_REFINE[name]
+        print(f"[10] {name} refine (JAX package on CPU in brackets): " + ", "
+              .join(f"{k} {rep[k]:.6g} ({j[k]:.6g})" for k in j)
+              + f"; handoff {t1 - t0:.2f} s; peak device memory "
+              f"{peak_mib(torch):.1f} MiB", flush=True)
+        if n_opt != len(kf_ids) or not np.isfinite(
+                [rep["kf_ate_refined_m"], rep["ate_refined_m"]]).all():
+            _fail(f"{name} refine: {n_opt} of {len(kf_ids)} optimized")
+        if name == "orbit" and rep["kf_ate_refined_m"] >= \
+                REFINED_KF_ATE_LIMIT_M:
+            _fail(f"orbit refined keyframe ATE {rep['kf_ate_refined_m']}")
+        if name == "circuit" and not (
+                rep["ate_refined_m"] < rep["ate_realtime_m"]
+                and rep["ate_refined_m"] < CIRCUIT_ATE_LIMIT_M):
+            _fail(f"circuit refined ATE {rep['ate_refined_m']} against "
+                  f"{rep['ate_realtime_m']} realtime")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
@@ -584,7 +853,8 @@ def main():
         "bound_share": bound_ms / ms, "bytes": n_bytes, "ops": n_ops,
         "library_ms": None,
         "launches_by_path": {"orbit": launches, "circuit": circ_launches,
-                             "kidnap": kid_launches},
+                             "kidnap": kid_launches,
+                             "selfdetect": sd_launches},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

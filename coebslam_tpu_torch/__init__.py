@@ -1,9 +1,11 @@
 """coebslam_tpu_torch — the PyTorch/CUDA port of coebslam_tpu.
 
 The port runs the zero-sync realtime RGB-D path (extraction, the COEB
-dynamic front-end, tracking, keyframing and windowed BA) and its
-maintenance program (BoW loop closing, the place bank, relocalization) as
-PyTorch code on an NVIDIA GPU, with the FAST corner kernel written by hand
+dynamic front-end with the YOLOv5 detector in the stream, tracking,
+keyframing and windowed BA), its maintenance program (BoW loop closing,
+the place bank, relocalization) and the offline refinement of a finished
+session (handoff to a host map, global BA) as PyTorch code on an NVIDIA
+GPU, with the FAST corner kernel written by hand
 in CUDA C++ (``csrc/fast.cu``). Module paths mirror the JAX package so each counterpart
 is found under the same name; this package imports neither JAX nor the JAX
 package.
@@ -13,10 +15,12 @@ Sub-packages
 geometry   SO3/SE3/Sim3 Lie-group ops, pinhole camera model
 ops        pyramid, FAST (+ CUDA kernel), grid selection, BRIEF, matching,
            fundamental-matrix RANSAC, blur gate, 3D-3D alignment RANSAC
-optim      pose-only Gauss-Newton, Schur-complement local BA, Sim3 pose
-           graph
+optim      pose-only Gauss-Newton, Schur-complement local and global BA,
+           Sim3 pose graph
+models     YOLOv5s network, decode and fixed-size NMS; the detector
 slam       frame constructor, dynamic front-end, tracking step, realtime
-           loop, BoW vocabulary, maintenance program
+           loop, BoW vocabulary, maintenance program, host map arena and
+           its device mirror, global BA, handoff and refine
 utils      synthetic RGB-D renderer (the room, the walker, the loop circuit)
 eval       ATE metric
 """

@@ -1,4 +1,4 @@
-"""Configuration of the realtime RGB-D path.
+"""Configuration of the ported paths.
 
 The port keeps its own copy of the dataclasses this slice reads, with the
 same field names and defaults as the JAX package's ``config.py``; there
@@ -169,6 +169,27 @@ class LoopConfig:
 
 
 @dataclass(frozen=True)
+class MapConfig:
+    """Fixed-capacity map-arena sizes (the host arena of the handoff)."""
+
+    max_keyframes: int = 512
+    max_points: int = 32768
+
+
+@dataclass(frozen=True)
+class DetectorConfig:
+    """YOLOv5 detector settings (yolov5s compound scaling by default)."""
+
+    conf_threshold: float = 0.3
+    iou_threshold: float = 0.45
+    max_detections: int = 16
+    input_size: int = 640
+    depth_multiple: float = 0.33
+    width_multiple: float = 0.50
+    num_classes: int = 80
+
+
+@dataclass(frozen=True)
 class SystemConfig:
     """The sections of the system configuration that this port reads."""
 
@@ -179,6 +200,8 @@ class SystemConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
     loop: LoopConfig = field(default_factory=LoopConfig)
+    map: MapConfig = field(default_factory=MapConfig)
+    detector: DetectorConfig = field(default_factory=DetectorConfig)
     sensor: str = "rgbd"
     use_dynamic_filtering: bool = True
 
@@ -196,7 +219,8 @@ def _build(cls, data: dict):
 _SECTIONS = {
     "camera": CameraConfig, "orb": OrbConfig, "dynamic": DynamicConfig,
     "matcher": MatcherConfig, "optimizer": OptimizerConfig,
-    "tracking": TrackingConfig, "loop": LoopConfig,
+    "tracking": TrackingConfig, "loop": LoopConfig, "map": MapConfig,
+    "detector": DetectorConfig,
 }
 
 

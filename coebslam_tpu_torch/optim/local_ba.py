@@ -7,8 +7,9 @@ Counterpart of ``BAProblem``, ``BAResult``, ``_residuals_jacobians``,
 lane-major ([..., M, P]) and reduces with one-hot matmuls because that is
 what the TPU runs fast; here the same values come from ordinary batched
 tensors in the natural [P, M, ...] layout. Summation order differs, so the
-values agree to float32 rounding, not bit for bit. The chunked/global
-variants are not part of this slice.
+values agree to float32 rounding, not bit for bit.
+``_gn_iteration_chunked`` and ``optimize_global_ba`` are the global BA's
+engine (``slam/global_ba.py``).
 """
 from __future__ import annotations
 
@@ -104,11 +105,12 @@ def _inv3x3(H):
     return rows * inv_det[..., None, None]
 
 
-def _assemble(prob: BAProblem, cam: CameraConfig, use_huber: bool,
-              chi2_mono: float, chi2_stereo: float, damping: float):
-    """Point-marginalized reduced camera system: S [K, K, 6, 6], b [K, 6],
-    and the per-observation terms needed for back-substitution."""
-    K = prob.kf_R.shape[0]
+def _point_terms(prob: BAProblem, cam: CameraConfig, use_huber: bool,
+                 chi2_mono: float, chi2_stereo: float, damping: float):
+    """Per-point terms of the Schur complement: the back-substitution's
+    (A [P, M, 6, 3], Hpp^-1 [P, 3, 3], bp [P, 3], kf_idx [P, M]), and the
+    weighted camera Jacobians, the camera Jacobians and the residuals that
+    the assembly reduces."""
     e, Jc, Jp, is_stereo = _residuals_jacobians(prob, cam)
     dev = e.device
 
@@ -135,11 +137,23 @@ def _assemble(prob: BAProblem, cam: CameraConfig, use_huber: bool,
 
     wJc = Jc * w[..., None, None]
     A = torch.einsum("pmri,pmrj->pmij", wJc, Jp)                  # [P, M, 6, 3]
+    kf_idx = torch.clamp(prob.obs_kf, min=0)
+    return (A, Hi, bp, kf_idx), (wJc, Jc, e)
+
+
+def _assemble(prob: BAProblem, cam: CameraConfig, use_huber: bool,
+              chi2_mono: float, chi2_stereo: float, damping: float):
+    """Point-marginalized reduced camera system: S [K, K, 6, 6], b [K, 6],
+    and the per-observation terms needed for back-substitution."""
+    K = prob.kf_R.shape[0]
+    terms, (wJc, Jc, e) = _point_terms(prob, cam, use_huber, chi2_mono,
+                                       chi2_stereo, damping)
+    A, Hi, bp, kf_idx = terms
+    dev = e.device
     AHinv = A @ Hi[:, None]                                       # [P, M, 6, 3]
     Hcc = torch.einsum("pmri,pmrj->pmij", wJc, Jc)                # [P, M, 6, 6]
     bc = torch.einsum("pmri,pmr->pmi", wJc, e)                    # [P, M, 6]
 
-    kf_idx = torch.clamp(prob.obs_kf, min=0)
     flat = kf_idx.reshape(-1)
     S_diag = torch.zeros((K, 6, 6), dtype=e.dtype, device=dev).index_add_(
         0, flat, Hcc.reshape(-1, 6, 6))
@@ -155,7 +169,7 @@ def _assemble(prob: BAProblem, cam: CameraConfig, use_huber: bool,
     ar = torch.arange(K, device=dev)
     S[ar, ar] += S_diag
     b = b - torch.einsum("pkis,ps->ki", T, bp)
-    return S, b, (A, Hi, bp, kf_idx)
+    return S, b, terms
 
 
 def _solve_cameras(S, b, kf_fixed, kf_valid, damping: float):
@@ -197,6 +211,56 @@ def _gn_iteration(prob: BAProblem, cam: CameraConfig, use_huber: bool,
     new_pts = _backsub(terms, dxi, prob.pt_valid, prob.pt_pos)
     new_pose = se3.retract(SE3(prob.kf_R, prob.kf_t), dxi)
     return prob._replace(kf_R=new_pose.R, kf_t=new_pose.t, pt_pos=new_pts)
+
+
+_POINT_FIELDS = ("pt_pos", "pt_valid", "obs_kf", "obs_uvr", "obs_w",
+                 "obs_valid")
+
+
+def _gn_iteration_chunked(prob: BAProblem, cam: CameraConfig,
+                          use_huber: bool, chi2_mono: float,
+                          chi2_stereo: float, damping: float,
+                          n_blocks: int) -> BAProblem:
+    """One GN step over the point axis in ``n_blocks`` blocks: pass 1 sums
+    the blocks' reduced camera systems (the Schur terms are separable by
+    point, so the block sums are exact), pass 2 recomputes each block's
+    point terms and back-substitutes its points. The reference's two
+    ``lax.scan``s are a loop over the blocks here."""
+    K = prob.kf_R.shape[0]
+    P = prob.obs_kf.shape[0]
+    assert P % n_blocks == 0, (P, n_blocks)
+    PB = P // n_blocks
+    blocks = [prob._replace(**{f: getattr(prob, f)[i * PB:(i + 1) * PB]
+                               for f in _POINT_FIELDS})
+              for i in range(n_blocks)]
+    dev = prob.kf_R.device
+    S = torch.zeros((K, K, 6, 6), device=dev)
+    b = torch.zeros((K, 6), device=dev)
+    for blk in blocks:
+        Sb, bb, _ = _assemble(blk, cam, use_huber, chi2_mono, chi2_stereo,
+                              damping)
+        S = S + Sb
+        b = b + bb
+    dxi = _solve_cameras(S, b, prob.kf_fixed, prob.kf_valid, damping)
+    new_pts = torch.cat([
+        _backsub(_point_terms(blk, cam, use_huber, chi2_mono, chi2_stereo,
+                              damping)[0], dxi, blk.pt_valid, blk.pt_pos)
+        for blk in blocks])
+    new_pose = se3.retract(SE3(prob.kf_R, prob.kf_t), dxi)
+    return prob._replace(kf_R=new_pose.R, kf_t=new_pose.t, pt_pos=new_pts)
+
+
+def optimize_global_ba(prob: BAProblem, cam: CameraConfig,
+                       cfg: OptimizerConfig, n_blocks: int = 8) -> BAResult:
+    """Full-map BA: ``global_ba_iters`` Huber GN iterations over the point
+    blocks, then the final outlier gate."""
+    for _ in range(cfg.global_ba_iters):
+        prob = _gn_iteration_chunked(prob, cam, True, cfg.chi2_mono,
+                                     cfg.chi2_stereo, damping=1e-5,
+                                     n_blocks=n_blocks)
+    final_valid, chi2 = _gate(prob, cam, cfg.chi2_mono, cfg.chi2_stereo)
+    return BAResult(kf_R=prob.kf_R, kf_t=prob.kf_t, pt_pos=prob.pt_pos,
+                    obs_valid=final_valid, chi2=chi2)
 
 
 def _gate(prob: BAProblem, cam: CameraConfig, chi2_m: float, chi2_s: float):

@@ -575,11 +575,15 @@ class RealtimeSlam:
     raises when CUDA is absent unless the caller asks for the CPU.
     ``vocabulary`` (``slam.vocabulary.Vocabulary``) enables the maintenance
     program (BoW loop closing, the place bank and relocalization), run
-    after every ``maintain_every``-th frame.
+    after every ``maintain_every``-th frame. ``detector``
+    (``models.detector.YoloDetector``) runs on the uploaded frame every
+    ``detect_every`` frames, and its boxes, left on the device, feed the
+    dynamic step until the next detection; boxes the caller passes win.
     """
 
     def __init__(self, cfg: SystemConfig, lim: Optional[RTLimits] = None,
-                 device=None, vocabulary=None, maintain_every: int = 8):
+                 device=None, vocabulary=None, maintain_every: int = 8,
+                 detector=None, detect_every: int = 10):
         device = resolve_device(device, "RealtimeSlam")
         if cfg.sensor != "rgbd":
             raise NotImplementedError(f"sensor {cfg.sensor!r} is not ported yet")
@@ -587,6 +591,9 @@ class RealtimeSlam:
         self.lim = lim or RTLimits()
         self.device = device
         self.maintain_every = max(int(maintain_every), 1)
+        self.detector = detector
+        self.detect_every = max(int(detect_every), 1)
+        self._det_boxes = None
         self.state = init_state(cfg, self.lim, device)
         self.stamps = []
         self._seed = 0
@@ -632,6 +639,11 @@ class RealtimeSlam:
         """Run one frame. gray/depth: [H, W] numpy arrays or tensors."""
         g = self._upload(gray)
         d = self._upload(depth)
+        if self.detector is not None \
+                and len(self.stamps) % self.detect_every == 0:
+            self._det_boxes = self.detector.detect_device(g)
+        if boxes is None:
+            boxes = self._det_boxes
         self._gen.manual_seed(self._seed)
         self.state, made_kf = _rt_step(g, d, self._boxes(boxes), self.state,
                                        self.cfg, self.lim,

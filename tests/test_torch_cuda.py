@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels against
-their plain PyTorch versions, and the maintenance program against its CPU
-run, on the card. Without a card they skip.
+their plain PyTorch versions, and the maintenance program, the detector
+and the global BA against their CPU runs, on the card. Without a card
+they skip.
 
 They import neither JAX nor the JAX package, so they also run on a machine
 that has only PyTorch (``--noconftest`` skips the JAX set-up of
@@ -241,3 +242,67 @@ def test_maintenance_step_on_card_matches_cpu(card, maint_session):
     assert int(r_cpu[1].n_reloc) == 1 and int(c_cpu[1].n_loops) == 1
     _assert_maint_close(r_cpu, r_gpu)
     _assert_maint_close(c_cpu, c_gpu)
+
+
+# --------------------------------------------------------------------- #
+# the detector and the global BA on the card against the CPU
+# --------------------------------------------------------------------- #
+
+def test_detect_device_on_card_matches_cpu(card, frame):
+    """Full-width yolov5s (seeded random weights calibrated on the frame)
+    and the walker detector: raw heads within rtol 1e-3 / atol 1e-3 (cuDNN
+    sums in another order), the padded device boxes of the walker detector
+    likewise."""
+    from chip_smoke import walker_detector
+    from coebslam_tpu_torch import config
+    from coebslam_tpu_torch.models import detector as tdet, yolov5
+    gray = frame.to(torch.uint8)
+    dyn = SystemConfig().dynamic
+    full = config.DetectorConfig()
+    weights = yolov5.init_random(
+        yolov5.YoloV5s(), torch.Generator().manual_seed(0),
+        calib=tdet.preprocess(gray.cpu(), full.input_size)).state_dict()
+    makers = (lambda d: tdet.YoloDetector(full, dyn, variables=weights,
+                                          device=d),
+              lambda d: walker_detector(config, tdet, dyn, device=d))
+    for make in makers:
+        on_cpu, on_card = make("cpu"), make(card)
+        for a, b in zip(on_card.heads(gray), on_cpu.heads(gray.cpu())):
+            assert torch.allclose(a.cpu(), b, rtol=1e-3, atol=1e-3), \
+                (a.cpu() - b).abs().max()
+    boxes = on_card.detect_device(gray).cpu()
+    ref = on_cpu.detect_device(gray.cpu())
+    assert torch.equal(boxes >= 0, ref >= 0)
+    assert torch.allclose(boxes, ref, rtol=1e-3, atol=1e-3)
+
+
+def test_global_ba_on_card_matches_cpu(card):
+    """One GlobalBA.run on the arena of a short CPU session, on the card
+    and on the CPU: poses within 1e-4, points within 1e-3."""
+    from coebslam_tpu_torch.config import CameraConfig, OrbConfig, \
+        TrackingConfig
+    from coebslam_tpu_torch.slam import handoff, realtime as trt
+    from coebslam_tpu_torch.slam.global_ba import GlobalBA
+    cfg = SystemConfig(camera=CameraConfig(**MAINT_CAM),
+                       orb=OrbConfig(n_levels=4, max_keypoints=1024),
+                       tracking=TrackingConfig(max_frames_between_kf=3))
+    planes = synthetic.make_room(seed=0, device="cpu")
+    poses = synthetic.camera_trajectory(36, radius=0.35)
+    rt = trt.RealtimeSlam(cfg, trt.RTLimits(max_kf=16, local_window=6,
+                                            ba_window=6, max_frames=64),
+                          device="cpu")
+    for i in range(12):
+        g, d = synthetic.render(cfg.camera, poses[i], planes)[:2]
+        rt.track(torch.clamp(g, 0, 255).to(torch.uint8),
+                 (d * cfg.camera.depth_map_factor).to(torch.int32), i / 30.0)
+    res = rt.finish()
+    arenas = []
+    for dev in ("cpu", card):
+        m, kf_ids = handoff.to_arena(res, cfg)
+        assert GlobalBA(cfg, device=dev).run(m) == len(kf_ids) >= 3
+        arenas.append(m)
+    a, b = arenas
+    kf, pts = a.valid_keyframes(), a.valid_points()
+    np.testing.assert_allclose(b.kf_R[kf], a.kf_R[kf], atol=1e-4)
+    np.testing.assert_allclose(b.kf_t[kf], a.kf_t[kf], atol=1e-4)
+    np.testing.assert_allclose(b.pt_pos[pts], a.pt_pos[pts], atol=1e-3)

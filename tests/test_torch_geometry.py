@@ -127,7 +127,7 @@ def test_config_from_dict_matches_jax_config():
     for j, t in ((jcfg.SystemConfig(), tcfg.SystemConfig()),
                  (jc, tcfg.config_from_dict(dataclasses.asdict(jc)))):
         for sec in ("camera", "orb", "dynamic", "matcher", "optimizer",
-                    "tracking", "loop"):
+                    "tracking", "loop", "map", "detector"):
             tsec = dataclasses.asdict(getattr(t, sec))
             jsec = dataclasses.asdict(getattr(j, sec))
             assert tsec == {k: jsec[k] for k in tsec}, sec
@@ -142,6 +142,7 @@ def test_brief_pattern_bit_identical():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "coebslam_tpu_torch").rglob("*.py"))
+    assert ROOT / "coebslam_tpu_torch" / "models" / "yolov5.py" in files
     files.append(ROOT / "chip_smoke.py")
     pat = re.compile(r"^\s*(import|from)\s+(jax\b|coebslam_tpu\b(?!_torch))",
                      re.M)
