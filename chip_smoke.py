@@ -51,14 +51,14 @@ Phases (each one failing the run with a non-zero exit when it fails):
   7. Kidnap relocalization (tests/test_realtime_loop.py): frames 0-49 of
      the circuit, then 6-15 again, maintenance every 2 frames. At least one
      relocalization, the last 4 frames tracked, ATE of the last 5 < 5 cm.
-  8. The orbit, self-detect (bench.py run_realtime_selfdetect, one pass
-     of the 150 frames): no ground-truth boxes; RealtimeSlam(detector=,
-     detect_every=3) with the walker detector (artifacts/
-     detector_walker.npz, width 0.25, 320x320 input, one class, conf 0.4,
-     boxes dilated 25 %). Every frame tracked, ATE < 5 cm, one FAST launch
-     per frame and 50 detections; prints host syncs per frame, fps and the
-     mean best IoU of the detector's boxes with the walker's on every 10th
-     frame.
+  8. The orbit, self-detect (bench.py run_realtime_selfdetect, cut to
+     the first 60 of its 150 frames for the script's time): no
+     ground-truth boxes; RealtimeSlam(detector=, detect_every=3) with the
+     walker detector (artifacts/detector_walker.npz, width 0.25, 320x320
+     input, one class, conf 0.4, boxes dilated 25 %). Every frame tracked,
+     ATE < 5 cm, one FAST launch per frame and 20 detections; prints host
+     syncs per frame, fps and the mean best IoU of the detector's boxes
+     with the walker's on every 10th frame.
   9. The detector alone, at full width (DetectorConfig(): yolov5s, 80
      classes, 640x640, seeded random weights) and at the walker's width:
      the card's raw heads against the port's CPU forward with the same
@@ -72,7 +72,23 @@ Phases (each one failing the run with a non-zero exit when it fails):
      before and after, refined_trajectory's ATE against the realtime one.
      The orbit's refined keyframe ATE < 2 cm; the circuit's refined
      trajectory below its realtime ATE and under 12 cm.
-Each of [4] and [6]-[10] prints the JAX package's result on the CPU for the
+ 11. Stereo at full width (tests/test_stereo_wide.py's scene without its
+     4-level / 1024-keypoint cut): RealtimeSlam.track_stereo over 120
+     rendered left/right pairs of the walking trajectory, baseline 0.30 m
+     (bf 160), the walker and its ground-truth boxes, frames 40-51
+     box-blurred; SystemConfig(sensor="stereo") with ORB and RTLimits at
+     their defaults. >= 115/120 frames tracked, ATE < 5 cm, and the kernel
+     launched twice per frame (left and right). Prints keyframes, live
+     points, fps, host syncs per frame and peak device memory.
+ 12. Monocular at full width (tests/test_realtime_mono.py's scene without
+     its cut): RealtimeSlam.track_mono over 60 frames of a 0.8 m orbit of
+     the room. Initialised by frame 10, at most 3 frames lost after it, at
+     least 3 keyframes, Sim3-aligned ATE < 5 cm, one kernel launch per
+     frame. Prints the initialising frame, H or F, the points triangulated,
+     the time of one initialisation attempt (CUDA events around one
+     reconstruct_graph on the initialising frame's correspondences, with
+     its host syncs counted), fps, syncs per frame and peak device memory.
+Each of [4] and [6]-[12] prints the JAX package's result on the CPU for the
 same scene and configuration beside its own, and the peak device memory.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
@@ -101,9 +117,11 @@ JAX_CPU_CIRCUIT_ATE_M = 0.073159
 JAX_CPU_CIRCUIT = "1 loop closed (to keyframe 0) of 9 events"
 JAX_CPU_KIDNAP_TAIL_M = 0.001680
 JAX_CPU_KIDNAP = "1 relocalization, the last 4 frames tracked"
-# [8]: one pass of the orbit, self-detect (cpu_reference.py jax selfdetect).
-JAX_CPU_SELFDETECT = dict(ok=150, ate_m=0.012281, n_kf=34, detections=50,
-                          box_iou=0.643881)
+# [8]: the first N_SELFDETECT frames of the orbit, self-detect
+# (cpu_reference.py jax selfdetect).
+N_SELFDETECT = 60
+JAX_CPU_SELFDETECT = dict(ok=60, ate_m=0.006101, n_kf=10, detections=20,
+                          box_iou=0.640871)
 SELFDETECT_ATE_LIMIT_M = 0.05
 # [10]: handoff and global BA of [4]'s and [6]'s sessions
 # (cpu_reference.py jax refine orbit|circuit).
@@ -118,6 +136,10 @@ JAX_CPU_REFINE = {
                     ate_refined_m=0.062603),
 }
 REFINED_KF_ATE_LIMIT_M = 0.02    # tests/test_handoff.py
+# [11] and [12] (cpu_reference.py jax stereo|mono).
+JAX_CPU_STEREO = dict(ok=120, ate_m=0.009160, n_kf=12, live_points=2251)
+JAX_CPU_MONO = dict(first_ok=1, lost_after=0, ok=59, ate_sim3_m=0.008167,
+                    n_kf=13, init="frame 1, homography, 602 triangulated")
 MEM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 L2_FLUSH_BYTES = 128 << 20   # written before a cold call: over twice the L2
@@ -134,6 +156,23 @@ DETECTOR_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 WALKER_DETECTOR = dict(num_classes=1, input_size=320, conf_threshold=0.4)
 WALKER_DILATE = 0.25
 DETECT_EVERY = 3
+# [11]: wide-baseline dynamic stereo (tests/test_stereo_wide.py at full
+# width): bf 160 (baseline 0.30 m), the walking trajectory, the walker and
+# its boxes, frames [40, 52) box-blurred with a 9-px kernel.
+N_STEREO = 120
+STEREO_BF = 160.0
+STEREO_WALKER = dict(seed=1, start=(-1.0, -0.25, 1.8),
+                     velocity=(0.011, 0.004, 0.0), half_w=0.28, half_h=0.62)
+STEREO_BLUR = (40, 52, 9)
+STEREO_MIN_OK = N_STEREO - 5
+STEREO_ATE_LIMIT_M = 0.05
+# [12]: monocular (tests/test_realtime_mono.py at full width): the room
+# without the walker, a 0.8 m orbit for initialisation parallax.
+N_MONO = 60
+MONO_RADIUS = 0.8
+MONO_FIRST_OK_MAX = 10
+MONO_MAX_LOST_AFTER = 3
+MONO_ATE_LIMIT_M = 0.05          # Sim3-aligned, tracked frames only
 
 # Canvases for the FAST kernel's edges (its tiles are 64 x 32 px): name,
 # H, W, the true extent of each level, and the values in it: "uniform" in
@@ -290,6 +329,73 @@ def circuit_config(config):
         camera=config.CameraConfig(), orb=config.OrbConfig(**CIRCUIT_ORB),
         tracking=config.TrackingConfig(**CIRCUIT_TRACKING),
         use_dynamic_filtering=False)
+
+
+def stereo_config(config):
+    """[11]'s SystemConfig from either package's config module: ORB and
+    limits at their defaults, a keyframe at least every 10 frames."""
+    return config.SystemConfig(
+        camera=config.CameraConfig(bf=STEREO_BF),
+        tracking=config.TrackingConfig(max_frames_between_kf=10),
+        sensor="stereo")
+
+
+def mono_config(config):
+    """[12]'s SystemConfig from either package's config module."""
+    return config.SystemConfig(
+        tracking=config.TrackingConfig(max_frames_between_kf=10),
+        sensor="monocular", use_dynamic_filtering=False)
+
+
+def stereo_blurred(i):
+    """Whether frame i of [11] lies in the blur window."""
+    return STEREO_BLUR[0] <= i < STEREO_BLUR[1]
+
+
+def stereo_scene(torch, synthetic, replica, cam, device):
+    """[11]'s frames on ``device`` with the port's renderer: (left, right,
+    boxes) with the walker's box as a [1, 4] numpy array (None when out of
+    view), the right image rendered from the pose shifted by the baseline,
+    and the ground-truth camera centres."""
+    planes = synthetic.make_room(seed=0, device=device)
+    walker = synthetic.make_walker(**STEREO_WALKER, device=device)
+    poses = replica.walking_trajectory(N_STEREO, seed=3)
+    shift = torch.tensor([cam.baseline, 0.0, 0.0], dtype=torch.float32)
+    frames = []
+    for i, p in enumerate(poses):
+        gl, _, box, _ = synthetic.render(cam, p, planes, walker, i)
+        gr = synthetic.render(cam, type(p)(p.R, p.t - shift), planes, walker,
+                              i)[0]
+        if stereo_blurred(i):
+            gl, gr = (torch.from_numpy(replica.box_blur(
+                x.cpu().numpy(), STEREO_BLUR[2])).to(device) for x in (gl, gr))
+        b = box.cpu().numpy()[None]
+        frames.append((gl, gr, b if b[0, 0] >= 0 else None))
+    gt = np.asarray([-p.R.numpy().T @ p.t.numpy() for p in poses])
+    return frames, gt
+
+
+def mono_scene(synthetic, cam, device):
+    """[12]'s grey frames on ``device`` and the ground-truth centres."""
+    planes = synthetic.make_room(seed=0, device=device)
+    poses = synthetic.camera_trajectory(N_MONO, radius=MONO_RADIUS)
+    frames = [synthetic.render(cam, p, planes)[0] for p in poses]
+    gt = np.asarray([-p.R.numpy().T @ p.t.numpy() for p in poses])
+    return frames, gt
+
+
+def mono_summary(ok, est, gt, ate):
+    """[12]'s gates' numbers: the first tracked frame, the frames lost after
+    it, and the Sim3-aligned ATE over the tracked frames."""
+    n = len(ok)
+    first = int(np.argmax(ok)) if ok.any() else n
+    sel = np.nonzero(ok)[0]
+    rmse = float(ate.ate_rmse(sel / 30.0, est[sel], np.arange(n) / 30.0, gt,
+                              with_scale=True)["rmse"]) if len(sel) >= 3 \
+        else float("nan")
+    return {"first_ok": first,
+            "lost_after": int((n - first) - ok[first:].sum()),
+            "ok": int(ok.sum()), "n": n, "ate_sim3_m": rmse}
 
 
 def time_dispatches(torch, rt, keep=None):
@@ -480,11 +586,12 @@ def main():
     from coebslam_tpu_torch.config import SystemConfig
     from coebslam_tpu_torch.eval import ate
     from coebslam_tpu_torch.models import detector as detector_mod, yolov5
-    from coebslam_tpu_torch.ops import extractor, fast, fast_cuda
+    from coebslam_tpu_torch.ops import extractor, fast, fast_cuda, \
+        initializer_ops
     from coebslam_tpu_torch.slam import handoff, vocabulary
     from coebslam_tpu_torch.slam.global_ba import GlobalBA
     from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
-    from coebslam_tpu_torch.utils import synthetic
+    from coebslam_tpu_torch.utils import replica, synthetic
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -728,7 +835,7 @@ def main():
     peak_mib(torch)
     with count_host_syncs(torch) as sd_sites:
         t0 = time.perf_counter()
-        for i in range(N_FRAMES):
+        for i in range(N_SELFDETECT):
             rt.track(G[i], D[i], stamp=i / 30.0)
         rt.block()
         sd_s = time.perf_counter() - t0
@@ -739,19 +846,20 @@ def main():
     n = len(res["ok"])
     rmse = ate.ate_rmse(res["stamps"], centres(res), np.arange(n) / 30.0,
                         C[:n])["rmse"]
-    iou = mean_best_iou(det.detect, G, B)
+    iou = mean_best_iou(det.detect, G[:n], B[:n])
     j = JAX_CPU_SELFDETECT
-    print(f"[8] self-detect (one pass; JAX package on CPU in brackets): "
-          f"frames OK {int(res['ok'].sum())}/{n} ({j['ok']}/{N_FRAMES}), "
+    print(f"[8] self-detect ({N_SELFDETECT} frames; JAX package on CPU in "
+          f"brackets): frames OK {int(res['ok'].sum())}/{n} ({j['ok']}/"
+          f"{N_SELFDETECT}), "
           f"ATE {rmse * 100:.3f} cm ({j['ate_m'] * 100:.3f}; limit "
           f"{SELFDETECT_ATE_LIMIT_M * 100:.0f} cm), keyframes {res['n_kf']} "
           f"({j['n_kf']}), detections dispatched {det.dispatches} "
           f"({j['detections']}), box IoU {iou:.4f} ({j['box_iou']:.4f}); "
           f"host syncs {sd_syncs} = {sd_syncs / n:.2f} per frame "
-          f"{sd_sites}; FAST launches {sd_launches}; {N_FRAMES} frames in "
-          f"{sd_s:.1f} s ({N_FRAMES / sd_s:.2f} fps); peak device memory "
+          f"{sd_sites}; FAST launches {sd_launches}; {n} frames in "
+          f"{sd_s:.1f} s ({n / sd_s:.2f} fps); peak device memory "
           f"{sd_mem:.1f} MiB", flush=True)
-    if n != N_FRAMES or int(res["ok"].sum()) < j["ok"]:
+    if n != N_SELFDETECT or int(res["ok"].sum()) < j["ok"]:
         _fail(f"self-detect: {int(res['ok'].sum())}/{n} frames tracked")
     if not np.isfinite(rmse) or rmse >= SELFDETECT_ATE_LIMIT_M:
         _fail(f"self-detect ATE {rmse} m >= {SELFDETECT_ATE_LIMIT_M} m")
@@ -839,6 +947,124 @@ def main():
                 and rep["ate_refined_m"] < CIRCUIT_ATE_LIMIT_M):
             _fail(f"circuit refined ATE {rep['ate_refined_m']} against "
                   f"{rep['ate_realtime_m']} realtime")
+
+    # ---- 11. stereo at full width (tests/test_stereo_wide.py's scene)
+    scfg = stereo_config(config)
+    t0 = time.perf_counter()
+    frames, sgt = stereo_scene(torch, synthetic, replica, scfg.camera, dev)
+    print(f"[11] rendered {N_STEREO} stereo pairs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rt = RealtimeSlam(scfg, RTLimits())
+    fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
+    with count_host_syncs(torch) as st_sites:
+        t0 = time.perf_counter()
+        for i, (gl, gr, b) in enumerate(frames):
+            rt.track_stereo(gl, gr, stamp=i / 30.0, boxes=b)
+        rt.block()
+        st_s = time.perf_counter() - t0
+    st_launches = fast_cuda.LAUNCHES
+    st_syncs = sum(st_sites.values())
+    res = rt.finish()
+    n = len(res["ok"])
+    n_ok = int(res["ok"].sum())
+    rmse = ate.ate_rmse(res["stamps"], centres(res), np.arange(n) / 30.0,
+                        sgt)["rmse"]
+    j = JAX_CPU_STEREO
+    print(f"[11] stereo (JAX package on CPU in brackets): frames OK "
+          f"{n_ok}/{n} ({j['ok']}/{N_STEREO}; gate >= {STEREO_MIN_OK}), ATE "
+          f"{rmse * 100:.3f} cm ({j['ate_m'] * 100:.3f}; limit "
+          f"{STEREO_ATE_LIMIT_M * 100:.0f} cm), keyframes {res['n_kf']} "
+          f"({j['n_kf']}), live points {int(res['pt_valid'].sum())} "
+          f"({j['live_points']}); FAST launches {st_launches} for {n} "
+          f"frames; {n} frames in {st_s:.1f} s ({n / st_s:.2f} fps); host "
+          f"syncs {st_syncs} = {st_syncs / n:.2f} per frame {st_sites}; peak "
+          f"device memory {peak_mib(torch):.1f} MiB", flush=True)
+    if n != N_STEREO or n_ok < STEREO_MIN_OK:
+        _fail(f"stereo: {n_ok}/{n} frames tracked")
+    if not np.isfinite(rmse) or rmse >= STEREO_ATE_LIMIT_M:
+        _fail(f"stereo ATE {rmse} m >= {STEREO_ATE_LIMIT_M} m")
+    if st_launches != 2 * n:
+        _fail(f"stereo: {st_launches} FAST launches for {n} frames")
+    del frames
+
+    # ---- 12. monocular at full width (tests/test_realtime_mono.py's scene)
+    mcfg = mono_config(config)
+    frames, mgt = mono_scene(synthetic, mcfg.camera, dev)
+    rt = RealtimeSlam(mcfg, RTLimits())
+    attempts = []
+    fit = initializer_ops.reconstruct_graph
+
+    def kept(*a, **kw):
+        attempts.append((a, kw))
+        return fit(*a, **kw)
+
+    initializer_ops.reconstruct_graph = kept
+    fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
+    try:
+        with count_host_syncs(torch) as mo_sites:
+            t0 = time.perf_counter()
+            for i, g in enumerate(frames):
+                rt.track_mono(g, stamp=i / 30.0)
+            rt.block()
+            mo_s = time.perf_counter() - t0
+    finally:
+        initializer_ops.reconstruct_graph = fit
+    mo_launches = fast_cuda.LAUNCHES
+    mo_syncs = sum(mo_sites.values())
+    mo_mem = peak_mib(torch)
+    res = rt.finish()
+    n = len(res["ok"])
+    ms_ = mono_summary(res["ok"], centres(res), mgt, ate)
+    inits = res["init_attempts"]
+    done = [a for a in inits if a["ok"]]
+    # The successful attempt again, on its correspondences: its device time
+    # and its reads.
+    init_ms = init_syncs = float("nan")
+    if done:
+        a, kw = attempts[inits.index(done[0])]
+        kw = dict(kw, generator=torch.Generator(device=dev))
+
+        def one():
+            kw["generator"].manual_seed(0)
+            return fit(*a, **kw)
+
+        init_ms = _device_ms(torch, one, 20)
+        with count_host_syncs(torch) as one_sites:
+            one()
+            torch.cuda.synchronize()
+        init_syncs = sum(one_sites.values())
+    j = JAX_CPU_MONO
+    print(f"[12] mono (JAX package on CPU in brackets): initialised on frame "
+          f"{done[0]['frame'] if done else None} with "
+          f"{'H' if done and done[0]['homography'] else 'F'}, "
+          f"{done[0]['good'] if done else 0} correspondences triangulated, "
+          f"{done[0]['points'] if done else 0} landmarks ({j['init']}); "
+          f"{len(inits)} attempts {inits}; first tracked frame "
+          f"{ms_['first_ok']} ({j['first_ok']}; gate <= "
+          f"{MONO_FIRST_OK_MAX}), lost after it {ms_['lost_after']} "
+          f"({j['lost_after']}; gate <= {MONO_MAX_LOST_AFTER}), frames OK "
+          f"{ms_['ok']}/{n} ({j['ok']}), keyframes {res['n_kf']} "
+          f"({j['n_kf']}; gate >= 3), Sim3 ATE "
+          f"{ms_['ate_sim3_m'] * 100:.3f} cm ({j['ate_sim3_m'] * 100:.3f}; "
+          f"limit {MONO_ATE_LIMIT_M * 100:.0f} cm)", flush=True)
+    print(f"[12] one initialisation attempt (reconstruct_graph, "
+          f"{mcfg.ransac.init_iterations} H and F hypotheses) {init_ms:.3f} "
+          f"ms between CUDA events (median of 20, queued behind a device-side "
+          f"sleep; its {init_syncs} host syncs let the host's dispatch "
+          f"show after the first); FAST launches {mo_launches} for {n} "
+          f"frames; {n} frames in {mo_s:.1f} s ({n / mo_s:.2f} fps); host "
+          f"syncs {mo_syncs} = {mo_syncs / n:.2f} per frame {mo_sites}; peak "
+          f"device memory {mo_mem:.1f} MiB; on {card_line}", flush=True)
+    if not done or ms_["first_ok"] > MONO_FIRST_OK_MAX \
+            or ms_["lost_after"] > MONO_MAX_LOST_AFTER or res["n_kf"] < 3:
+        _fail(f"mono: {ms_}, {res['n_kf']} keyframes, attempts {inits}")
+    if not np.isfinite(ms_["ate_sim3_m"]) \
+            or ms_["ate_sim3_m"] >= MONO_ATE_LIMIT_M:
+        _fail(f"mono Sim3 ATE {ms_['ate_sim3_m']} m >= {MONO_ATE_LIMIT_M} m")
+    if mo_launches != n:
+        _fail(f"mono: {mo_launches} FAST launches for {n} frames")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
@@ -854,7 +1080,8 @@ def main():
         "library_ms": None,
         "launches_by_path": {"orbit": launches, "circuit": circ_launches,
                              "kidnap": kid_launches,
-                             "selfdetect": sd_launches},
+                             "selfdetect": sd_launches,
+                             "stereo": st_launches, "mono": mo_launches},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -177,6 +177,20 @@ class MapConfig:
 
 
 @dataclass(frozen=True)
+class RansacConfig:
+    """Batched RANSAC settings (the monocular initialiser reads
+    ``init_iterations`` and ``init_sigma``)."""
+
+    pnp_iterations: int = 300
+    pnp_min_inliers: int = 10
+    pnp_chi2: float = 5.991
+    sim3_iterations: int = 300
+    init_iterations: int = 200
+    init_sigma: float = 1.0
+    homography_model_threshold: float = 0.40
+
+
+@dataclass(frozen=True)
 class DetectorConfig:
     """YOLOv5 detector settings (yolov5s compound scaling by default)."""
 
@@ -201,6 +215,7 @@ class SystemConfig:
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
     loop: LoopConfig = field(default_factory=LoopConfig)
     map: MapConfig = field(default_factory=MapConfig)
+    ransac: RansacConfig = field(default_factory=RansacConfig)
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     sensor: str = "rgbd"
     use_dynamic_filtering: bool = True
@@ -220,7 +235,7 @@ _SECTIONS = {
     "camera": CameraConfig, "orb": OrbConfig, "dynamic": DynamicConfig,
     "matcher": MatcherConfig, "optimizer": OptimizerConfig,
     "tracking": TrackingConfig, "loop": LoopConfig, "map": MapConfig,
-    "detector": DetectorConfig,
+    "ransac": RansacConfig, "detector": DetectorConfig,
 }
 
 

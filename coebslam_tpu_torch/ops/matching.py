@@ -59,6 +59,18 @@ def match(dist_matrix, *, max_distance: float, ratio: Optional[float] = None,
                        best, ok)
 
 
+def window_penalty(uv_query, uv_target, radius):
+    """[N, M] additive penalty: 0 inside a square search window around each
+    query, BIG outside (the candidate set of Frame::GetFeaturesInArea).
+    ``radius`` is a scalar or an [N] per-query radius."""
+    dx = torch.abs(uv_query[:, None, 0] - uv_target[None, :, 0])
+    dy = torch.abs(uv_query[:, None, 1] - uv_target[None, :, 1])
+    r = radius[:, None] if isinstance(radius, torch.Tensor) \
+        and radius.dim() > 0 else radius
+    inside = (dx <= r) & (dy <= r)
+    return torch.where(inside, 0.0, BIG)
+
+
 def rotation_consistency(angles_query, angles_target, match: MatchResult,
                          histo_length: int = 30, top_bins: int = 3):
     """Keep matches whose angle difference falls in the 3 most popular

@@ -1,6 +1,7 @@
-"""Per-frame front-end: extraction + RGB-D depth association.
+"""Per-frame front-end: extraction + RGB-D depth association or stereo
+row-band matching.
 
-Counterpart of the RGB-D parts of ``coebslam_tpu/slam/frame.py``.
+Counterpart of ``coebslam_tpu/slam/frame.py``.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 
 from ..config import CameraConfig, OrbConfig
 from ..geometry import camera as cam_ops
-from ..ops import extractor
+from ..ops import extractor, matching
 from ..ops.extractor import Features
 
 
@@ -32,6 +33,60 @@ def level_inv_sigma2(levels, scale_factor: float):
                     device=levels.device)
     sigma2 = torch.pow(sf, levels.to(torch.float32)) ** 2
     return 1.0 / sigma2
+
+
+def match_stereo(feats_l: Features, feats_r: Features, cam: CameraConfig,
+                 orb: OrbConfig, row_tolerance: float = 2.0):
+    """Rectified stereo matching of left keypoints against right keypoints
+    in the same row band (Frame::ComputeStereoMatches): a row band scaled
+    by the left keypoint's level, disparity in (0.1, fx), levels within 1,
+    then the Hamming best with ratio and mutual checks.
+
+    Returns (depth [N], ur [N]) for the left features; 0 / -1 where
+    unmatched.
+    """
+    d = matching.hamming_matrix(feats_l.signed_desc(), feats_r.signed_desc())
+    sf = torch.full((), orb.scale_factor, dtype=torch.float32,
+                    device=d.device)
+    scale_l = torch.pow(sf, feats_l.level.to(torch.float32))
+    # The three penalties are added in the reference's order: each adds
+    # BIG in float32, so the sums (and the max_distance gate) stay equal.
+    dv = torch.abs(feats_l.uv[:, None, 1] - feats_r.uv[None, :, 1])
+    d = d + torch.where(dv <= row_tolerance * scale_l[:, None], 0.0,
+                        matching.BIG)
+    disp = feats_l.uv[:, None, 0] - feats_r.uv[None, :, 0]
+    d = d + torch.where((disp > 0.1) & (disp < cam.fx), 0.0, matching.BIG)
+    dl = torch.abs(feats_l.level[:, None] - feats_r.level[None, :])
+    d = d + torch.where(dl <= 1, 0.0, matching.BIG)
+
+    res = matching.match(d, max_distance=100.0, ratio=0.9, mutual=True,
+                         row_valid=feats_l.valid, col_valid=feats_r.valid)
+    matched_disp = torch.gather(disp, 1,
+                                torch.clamp(res.idx, min=0)[:, None])[:, 0]
+    ok = res.valid & (matched_disp > 0.1)
+    depth = torch.where(ok, cam.bf / torch.clamp(matched_disp, min=0.1),
+                        torch.zeros_like(matched_disp))
+    ur = torch.where(ok, feats_l.uv[:, 0] - matched_disp,
+                     torch.full_like(matched_disp, -1.0))
+    return depth, ur
+
+
+def process_stereo(gray_left, gray_right, cam: CameraConfig, orb: OrbConfig,
+                   *, n_features=None, dynamic_mask=None,
+                   area_mode=None) -> FrameData:
+    """The stereo Frame constructor: extract on both images, match along
+    rows, make depth from disparity. ``dynamic_mask`` and ``area_mode``
+    apply to the left extraction only; the right keypoints only serve the
+    disparity search."""
+    feats_l = extractor.extract(gray_left, orb, n_features=n_features,
+                                dynamic_mask=dynamic_mask,
+                                area_mode=area_mode)
+    feats_r = extractor.extract(gray_right, orb, n_features=n_features)
+    depth, ur = match_stereo(feats_l, feats_r, cam, orb)
+    inv_s2 = level_inv_sigma2(feats_l.level, orb.scale_factor)
+    obs = torch.cat([feats_l.uv, ur[:, None]], dim=-1)
+    return FrameData(feats=feats_l, depth=depth, ur=ur, inv_sigma2=inv_s2,
+                     obs=obs)
 
 
 def process_rgbd(gray, depth_img, cam: CameraConfig, orb: OrbConfig, *,

@@ -1,9 +1,13 @@
-"""Realtime RGB-D SLAM: the per-frame pipeline on the card.
+"""Realtime RGB-D, stereo and monocular SLAM: the per-frame pipeline on
+the card.
 
-Counterpart of the RGB-D path of ``coebslam_tpu/slam/realtime.py``:
-``rt_step`` runs, per frame, ORB extraction (FAST through the CUDA kernel),
-the COEB dynamic front-end, four-stage tracking, the keyframe policy,
-keyframe creation with point spawning and the windowed Schur BA, the
+Counterpart of ``coebslam_tpu/slam/realtime.py``: ``rt_step`` runs, per
+frame, ORB extraction (FAST through the CUDA kernel; a stereo frame
+extracts left and right and makes depth from row-band disparity), the COEB
+dynamic front-end, the monocular two-view initialisation while no map
+exists, four-stage tracking, the keyframe policy, keyframe creation with
+point spawning (from depth, or by epipolar matching and triangulation
+against the previous keyframe for mono) and the windowed Schur BA, the
 adaptive feature budget and the trajectory ring write. All state lives in
 device tensors (``RTState``); ``finish()`` is the session's readback.
 
@@ -16,8 +20,11 @@ logical point ``lid * S + slot`` at ``pid % (max_kf * S)``); the
 loop-closure reuse window and the bank re-seed window are laid out as there
 and are opened by the maintenance program (``slam/maintenance.py``), which
 ``RealtimeSlam`` dispatches every few frames when given a vocabulary.
-Updates are out of place, like the reference's. The mono and stereo
-branches are not part of this slice.
+Updates are out of place, like the reference's. The monocular
+initialisation's two nested ``lax.cond``s are host branches too: before the
+map exists, a frame reads whether a reference frame is held and, after an
+attempt, whether it succeeded; once initialised, mono reads no more than
+RGB-D does.
 """
 from __future__ import annotations
 
@@ -27,8 +34,9 @@ import numpy as np
 import torch
 
 from ..config import SystemConfig
+from ..geometry import so3
 from ..geometry.se3 import SE3
-from ..ops import brief, matching
+from ..ops import brief, initializer_ops, matching, triangulation
 from ..optim import local_ba
 from ..utils.device import resolve_device
 from . import dynamic as dynamic_mod
@@ -213,6 +221,162 @@ def _set_rows(arr, start, chunk):
 
 
 # --------------------------------------------------------------------- #
+# monocular two-view initialisation
+# --------------------------------------------------------------------- #
+
+
+class InitAttempt(NamedTuple):
+    """One two-view initialisation attempt, left on the device."""
+    ok: torch.Tensor               # keyframes 0 and 1 were built
+    used_homography: torch.Tensor
+    n_good: torch.Tensor           # correspondences triangulated
+    n_points: torch.Tensor         # landmarks made of them (at most S)
+
+
+def nanmedian(z):
+    """Median of the non-NaN values of ``z``, interpolated as
+    ``jnp.nanmedian`` does (the mean of the middle two for an even count;
+    ``torch.nanmedian`` returns the lower one); NaN when all are NaN."""
+    zs = torch.sort(z).values                       # NaNs sort last
+    cnt = (~torch.isnan(z)).sum().to(z.dtype)
+    q = 0.5 * (cnt - 1.0)
+    lo, hi = torch.floor(q), torch.ceil(q)
+    w_hi = q - lo
+    w_lo = 1.0 - w_hi
+    top = torch.clamp(cnt - 1.0, min=0.0)
+    lo = torch.minimum(torch.clamp(lo, min=0.0), top).to(torch.int64)
+    hi = torch.minimum(torch.clamp(hi, min=0.0), top).to(torch.int64)
+    pick = initializer_ops.pick
+    return pick(zs, lo) * w_lo + pick(zs, hi) * w_hi
+
+
+def _mono_init(st: RTState, fd, cfg: SystemConfig, lim: RTLimits, *,
+               generator=None, init_idx=None):
+    """Monocular initialisation (Tracking::MonocularInitialization with the
+    two-view initializer): hold a reference frame; once one is held, match
+    the current frame against it in a wide window and run
+    ``initializer_ops.reconstruct_graph``. On success build keyframes 0
+    (the reference, at identity) and 1 (the current frame, at the recovered
+    pose) with the triangulated points as chunk 0, scaled so that the
+    median scene depth is 1. A failed attempt holds the current frame as
+    the new reference.
+
+    ``init_idx`` = (idx_h [H, 4], idx_f [H, 8]) gives the RANSAC samples
+    (else they come from ``generator``). Returns (state, InitAttempt or
+    None, whether keyframes 0 and 1 were built). Reads ``mr_ok`` and,
+    after an attempt, its success to the host.
+    """
+    cam = cfg.camera
+    S = lim.spawn_per_kf
+    feats = fd.feats
+    dev = feats.uv.device
+    f32 = torch.float32
+    N = st.mr_valid.shape[0]
+
+    def stash(s):
+        return s._replace(mr_desc=feats.desc, mr_uv=feats.uv,
+                          mr_angle=feats.angle, mr_w=fd.inv_sigma2,
+                          mr_valid=feats.valid,
+                          mr_ok=feats.valid.sum() > 100)
+
+    if not bool(st.mr_ok):                 # host read (before the map only)
+        return stash(st), None, False
+    s = st
+    sd_r = brief.to_signed(brief.unpack_bits(s.mr_desc))
+    d = matching.hamming_matrix(sd_r, feats.signed_desc())
+    d = d + matching.window_penalty(s.mr_uv, feats.uv,
+                                    cfg.matcher.radius_init)
+    res = matching.match(d, max_distance=cfg.matcher.th_low,
+                         ratio=cfg.matcher.nn_ratio_init, mutual=True,
+                         row_valid=s.mr_valid, col_valid=feats.valid)
+    n_m = res.valid.sum()
+    uv2 = feats.uv[torch.clamp(res.idx, min=0)]
+    idx_h, idx_f = init_idx if init_idx is not None else (None, None)
+    rec = initializer_ops.reconstruct_graph(
+        s.mr_uv, uv2, res.valid, cam, idx_h, idx_f, generator=generator,
+        n_hypotheses=cfg.ransac.init_iterations, sigma=cfg.ransac.init_sigma)
+    good = rec.good & res.valid
+    ok = rec.ok & (n_m >= 100) & torch.isfinite(rec.R).all() \
+        & torch.isfinite(rec.t).all()
+    rank = torch.cumsum(good.to(torch.int64), 0) - 1
+    take = good & (rank < S)
+    attempt = InitAttempt(ok, rec.used_homography, good.sum(), take.sum())
+    if not bool(ok):                       # host read (before the map only)
+        return stash(s), attempt, False
+
+    z = torch.where(good, rec.points[:, 2],
+                    torch.full_like(rec.points[:, 2], float("nan")))
+    med = nanmedian(z)
+    med = torch.where(torch.isfinite(med) & (med > 1e-6), med,
+                      torch.ones_like(med))
+    X = rec.points / med
+    t2 = rec.t / med
+    R2 = so3.orthonormalize(rec.R)
+
+    # ---- chunk 0: the triangulated landmarks, in reference-keypoint order
+    oh = (rank[None, :] == torch.arange(S, device=dev)[:, None]) \
+        & take[None, :]
+    src = torch.argmax(oh.to(torch.uint8), dim=1)
+    vc = oh.any(dim=1)
+    zf = torch.zeros((), device=dev)
+    pos_c = torch.where(vc[:, None], X[src], zf)
+    desc_c = torch.where(vc[:, None], s.mr_desc[src],
+                         torch.zeros((), dtype=torch.uint8, device=dev))
+    ang_c = torch.where(vc, s.mr_angle[src], zf)
+    sf = torch.full((), cfg.orb.scale_factor, dtype=f32, device=dev)
+    lvl_c = torch.where(
+        vc, -torch.log(torch.clamp(s.mr_w[src], min=1e-9))
+        / (2.0 * torch.log(sf)), zf)
+    dist = torch.clamp(torch.linalg.norm(pos_c, dim=-1), min=1e-6)
+    normal_c = pos_c / dist[:, None]
+    maxd = torch.where(vc, dist * torch.pow(sf, lvl_c), zf)
+    mind = torch.where(vc, maxd / cfg.orb.scale_factor
+                       ** (cfg.orb.n_levels - 1), torch.full_like(maxd, 1e3))
+
+    def chunk0(arr, chunk):
+        return torch.cat([chunk.to(arr.dtype), arr[S:]])
+
+    pid_ref = torch.where(take, rank, torch.full_like(rank, -1))   # lid 0
+    # Current keypoint j <- the reference keypoint n with res.idx[n] = j.
+    ohj = (res.idx[None, :] == torch.arange(N, device=dev)[:, None]) \
+        & (take & (res.idx >= 0))[None, :]
+    n_of = torch.argmax(ohj.to(torch.uint8), dim=1)
+    pid_cur = torch.where(ohj.any(dim=1), pid_ref[n_of],
+                          torch.full_like(pid_ref, -1))
+
+    # ---- keyframe rows 0 (the reference at identity) and 1 (current)
+    rows = torch.arange(2, device=dev)
+
+    def two(arr, a, b):
+        return arr.index_copy(0, rows, torch.stack([a, b]).to(arr.dtype))
+
+    eye = torch.eye(3, dtype=f32, device=dev)
+    obs0 = torch.cat([s.mr_uv, torch.full((N, 1), -1.0, device=dev)], dim=1)
+    fi = s.frame_idx
+    return s._replace(
+        pt_pos=chunk0(s.pt_pos, pos_c), pt_desc=chunk0(s.pt_desc, desc_c),
+        pt_valid=chunk0(s.pt_valid, vc), pt_angle=chunk0(s.pt_angle, ang_c),
+        pt_normal=chunk0(s.pt_normal, normal_c),
+        pt_mind=chunk0(s.pt_mind, mind), pt_maxd=chunk0(s.pt_maxd, maxd),
+        kf_R=two(s.kf_R, eye, R2), kf_t=two(s.kf_t, torch.zeros_like(t2), t2),
+        kf_lid=two(s.kf_lid, rows[0], rows[1]),
+        kf_obs=two(s.kf_obs, obs0, fd.obs),
+        kf_desc=two(s.kf_desc, s.mr_desc, feats.desc),
+        kf_w=two(s.kf_w, s.mr_w, fd.inv_sigma2),
+        kf_kp_valid=two(s.kf_kp_valid, s.mr_valid, feats.valid),
+        kf_pid=two(s.kf_pid, pid_ref, pid_cur),
+        kf_frame=two(s.kf_frame, torch.clamp(fi - 1, min=0), fi),
+        n_kf=torch.full_like(s.n_kf, 2),
+        frames_since_kf=torch.zeros_like(s.frames_since_kf),
+        peak_inliers=(pid_cur >= 0).sum(),
+        track=s.track._replace(
+            R=R2, t=t2, vR=eye, vt=torch.zeros_like(t2),
+            has_vel=torch.zeros_like(s.track.has_vel),
+            ok=torch.ones_like(s.track.ok), pids=pid_cur),
+        mr_ok=torch.zeros_like(s.mr_ok)), attempt, True
+
+
+# --------------------------------------------------------------------- #
 # keyframe creation + windowed BA
 # --------------------------------------------------------------------- #
 
@@ -221,9 +385,10 @@ def _create_keyframe(st: RTState, fd, spawn_ok, pose: SE3, local_ids,
                      local_alive, cfg: SystemConfig, lim: RTLimits) -> RTState:
     """Insert the current frame as keyframe ``lid = n_kf`` (ring row
     ``lid % K``): associate unmatched keypoints to live window landmarks
-    (Fuse's track-extension case), spawn close-depth unassociated
-    keypoints into the keyframe's point chunk, write the ring row, then run
-    the windowed BA."""
+    (Fuse's track-extension case), spawn unassociated keypoints into the
+    keyframe's point chunk (close-depth ones for RGB-D and stereo, ones
+    triangulated against the previous keyframe for mono), write the ring
+    row, then run the windowed BA."""
     cam = cfg.camera
     K, S = lim.max_kf, lim.spawn_per_kf
     feats = fd.feats
@@ -241,8 +406,9 @@ def _create_keyframe(st: RTState, fd, spawn_ok, pose: SE3, local_ids,
     pv = cam.fy * pc[:, 1] / z + cam.cy
     vis = pt_live & (pc[:, 2] > 0.05) & (pu >= 0) & (pu < cam.width) \
         & (pv >= 0) & (pv < cam.height)
+    sd_kp = feats.signed_desc()
     sd_pt = brief.to_signed(brief.unpack_bits(st.pt_desc[lw_phys]))
-    ham = matching.hamming_matrix(feats.signed_desc(), sd_pt)     # [N, L]
+    ham = matching.hamming_matrix(sd_kp, sd_pt)                   # [N, L]
     near = (torch.abs(pu[None, :] - feats.uv[:, :1]) <= 2.5) \
         & (torch.abs(pv[None, :] - feats.uv[:, 1:2]) <= 2.5) & vis[None, :]
     ham = torch.where(near, ham, torch.full_like(ham, 1e9))
@@ -254,16 +420,49 @@ def _create_keyframe(st: RTState, fd, spawn_ok, pose: SE3, local_ids,
         & (dbest <= cfg.matcher.th_low)
     pids0 = torch.where(assoc, local_ids[jbest], st.track.pids)
 
-    # ---- spawn: close-depth unmatched keypoints unproject directly.
-    spawn = (feats.valid & (pids0 < 0) & (fd.depth > 0)
-             & (fd.depth < cam.depth_threshold) & spawn_ok)
-    pts_w = _unproject_world(cam, feats.uv, fd.depth, pose.R, pose.t)
+    # ---- spawn. RGB-D/stereo: close-depth unmatched keypoints unproject
+    # directly. Monocular: epipolar match + DLT triangulation against the
+    # previous keyframe (CreateNewMapPoints).
+    kf_pid_base = st.kf_pid
+    if cfg.sensor == "monocular":
+        prev_row = ((k_log - 1) % K).reshape(1)
+        prev = lambda arr: arr.index_select(0, prev_row)[0]
+        T_prev = SE3(prev(st.kf_R), prev(st.kf_t))
+        prev_pid = prev(st.kf_pid)
+        prev_free = prev(st.kf_kp_valid) & (prev_pid < 0)
+        ln_sf = torch.log(torch.full((), cfg.orb.scale_factor, device=dev))
+        prev_lvl = -torch.log(torch.clamp(prev(st.kf_w), min=1e-9)) \
+            / (2.0 * ln_sf)
+        sd_prev = brief.to_signed(brief.unpack_bits(prev(st.kf_desc)))
+        prev_obs = prev(st.kf_obs)
+        tri = triangulation.triangulate_pair(
+            feats.uv, sd_kp, feats.valid & (pids0 < 0) & spawn_ok,
+            feats.level, prev_obs[:, :2], sd_prev, prev_free, prev_lvl,
+            prev_obs[:, 2], pose, T_prev, cam, cfg.orb, cfg.matcher)
+        spawn = tri.good & torch.isfinite(tri.points).all(dim=-1)
+        pts_w = tri.points
+    else:
+        spawn = (feats.valid & (pids0 < 0) & (fd.depth > 0)
+                 & (fd.depth < cam.depth_threshold) & spawn_ok)
+        pts_w = _unproject_world(cam, feats.uv, fd.depth, pose.R, pose.t)
     rank = torch.cumsum(spawn.to(torch.int64), 0) - 1
     take = spawn & (rank < S)
     # Exact N->S compaction: slot s's source is the keypoint of rank s.
     oh = (rank[None, :] == torch.arange(S, device=dev)[:, None]) & take[None, :]
     src = torch.argmax(oh.to(torch.uint8), dim=1)
     valid_c = oh.any(dim=1)
+
+    if cfg.sensor == "monocular":
+        # The second observation: the previous keyframe's matched keypoint
+        # gets the new landmark's id, so the windowed BA constrains it from
+        # both views at once.
+        n_kp = feats.uv.shape[0]
+        ohm = (tri.idx2[None, :] == torch.arange(n_kp, device=dev)[:, None]) \
+            & take[None, :]
+        n_of_m = torch.argmax(ohm.to(torch.uint8), dim=1)
+        prev_pids = torch.where(ohm.any(dim=1), k_log * S + rank[n_of_m],
+                                prev_pid)
+        kf_pid_base = st.kf_pid.index_copy(0, prev_row, prev_pids[None])
     zf = torch.zeros((), device=dev)
     pos_c = torch.where(valid_c[:, None], pts_w[src], zf)
     desc_c = torch.where(valid_c[:, None], feats.desc[src],
@@ -294,7 +493,7 @@ def _create_keyframe(st: RTState, fd, spawn_ok, pose: SE3, local_ids,
         kf_desc=row(st.kf_desc, feats.desc),
         kf_w=row(st.kf_w, fd.inv_sigma2),
         kf_kp_valid=row(st.kf_kp_valid, feats.valid),
-        kf_pid=row(st.kf_pid, pid_frame),
+        kf_pid=row(kf_pid_base, pid_frame),
         kf_frame=row(st.kf_frame, st.frame_idx), n_kf=k_log + 1,
         pt_pos=_set_rows(st.pt_pos, base, pos_c),
         pt_desc=_set_rows(st.pt_desc, base, desc_c),
@@ -331,7 +530,11 @@ def _windowed_ba(st: RTState, cfg: SystemConfig, lim: RTLimits) -> RTState:
     kf_R_w = st.kf_R[rows_c]
     kf_t_w = st.kf_t[rows_c]
     # Anchor: the oldest window KF is fixed (plus KF 0 always — gauge).
-    kf_fixed = (torch.arange(W, device=dev) < 1) | ~wvalid | (wks_c <= 0)
+    # Monocular fixes two: with one fixed camera the map scale is a free
+    # direction and the Schur solve goes singular.
+    n_anchor = 2 if cfg.sensor == "monocular" else 1
+    kf_fixed = (torch.arange(W, device=dev) < n_anchor) | ~wvalid \
+        | (wks_c <= n_anchor - 1)
 
     win_phys = (base_phys + torch.arange(P, device=dev)) % PT
     pt_pos_w = st.pt_pos[win_phys]
@@ -415,44 +618,65 @@ def _windowed_ba(st: RTState, cfg: SystemConfig, lim: RTLimits) -> RTState:
 
 def rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
             lim: RTLimits, *, generator: Optional[torch.Generator] = None,
-            ransac_idx=None) -> RTState:
-    """One RGB-D frame end to end.
+            ransac_idx=None, init_idx=None) -> RTState:
+    """One frame end to end.
 
     Args:
-      gray: [H, W] grey image (uint8 or float) on the device.
+      gray: [H, W] grey image (uint8 or float) on the device; the left
+        image for stereo.
       depth: [H, W] depth, raw integer units (divided by depth_map_factor)
-        or float metres.
+        or float metres; for stereo the right image; for mono zeros.
       boxes: [B, 4] float32 padded detector boxes (xmin < 0 = absent).
       generator / ransac_idx: RANSAC sample source for the dynamic check.
-    Reads one device bool (the keyframe decision) to the host.
+      init_idx: (idx_h, idx_f) samples of a monocular initialisation
+        attempt (else drawn from ``generator``).
+    Reads one device bool (the keyframe decision) to the host; mono reads
+    up to three more before its map exists.
     """
     return _rt_step(gray, depth, boxes, st, cfg, lim, generator=generator,
-                    ransac_idx=ransac_idx)[0]
+                    ransac_idx=ransac_idx, init_idx=init_idx)[0]
 
 
 def _rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
-             lim: RTLimits, *, generator=None, ransac_idx=None):
-    """``rt_step`` that also returns whether the frame became a keyframe
-    (the host bool it read)."""
-    if cfg.sensor != "rgbd":
-        raise NotImplementedError(f"sensor {cfg.sensor!r} is not ported yet")
+             lim: RTLimits, *, generator=None, ransac_idx=None,
+             init_idx=None, n_kf: Optional[int] = None):
+    """``rt_step`` that also returns the keyframes the frame made (the host
+    reads that decided them) and the mono initialisation attempt, if any.
+    ``n_kf`` is the host's keyframe count (read from the state when not
+    given); mono initialises while it is 0."""
     cam = cfg.camera
     t_cfg = cfg.tracking
     K, S = lim.max_kf, lim.spawn_per_kf
     PT = K * S
     dev = st.kf_R.device
     f32 = torch.float32
+    mono = cfg.sensor == "monocular"
 
     g = gray.to(f32)
-    if depth.dtype.is_floating_point:
-        d = depth.to(f32)
+    if cfg.sensor == "stereo":
+        fd = frame_mod.process_stereo(g, depth.to(f32), cam, cfg.orb,
+                                      n_features=st.budget,
+                                      dynamic_mask=st.dyn.sticky > 0,
+                                      area_mode=st.dyn.area_flag)
     else:
-        d = depth.to(f32) / cam.depth_map_factor
-    fd = frame_mod.process_rgbd(g, d, cam, cfg.orb, n_features=st.budget,
-                                dynamic_mask=st.dyn.sticky > 0,
-                                area_mode=st.dyn.area_flag)
+        if depth.dtype.is_floating_point:
+            d = depth.to(f32)
+        else:
+            d = depth.to(f32) / cam.depth_map_factor
+        fd = frame_mod.process_rgbd(g, d, cam, cfg.orb, n_features=st.budget,
+                                    dynamic_mask=st.dyn.sticky > 0,
+                                    area_mode=st.dyn.area_flag)
     fd, spawn_ok, dyn2, _info = dynamic_mod.dynamic_step(
         fd, g, st.dyn, boxes, cfg, generator=generator, idx=ransac_idx)
+
+    n_new = 0
+    attempt = None
+    if mono and (int(st.n_kf) if n_kf is None else n_kf) == 0:
+        # Two-view initialisation replaces the depth bootstrap.
+        st, attempt, built = _mono_init(st, fd, cfg, lim,
+                                        generator=generator,
+                                        init_idx=init_idx)
+        n_new = 2 if built else 0
 
     # Tracking local map = the last `local_window` keyframe chunks + the
     # loop-closure reuse window + the bank re-seed window.
@@ -504,22 +728,35 @@ def _rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
     untracked_close = vec[_V_UNTRACKED_CLOSE]
 
     first = st.n_kf == 0
-    boot = first & (fd.feats.valid.sum() >= 500)
+    if mono:
+        # No depth bootstrap: the map appears only through _mono_init, and
+        # until then no frame is tracked. On the initialising frame, when
+        # the tracking gates fail, the initialised pose is kept.
+        boot = torch.zeros_like(first)
+        mono_inited = (st.n_kf == 2) & (st.frames_since_kf == 0) \
+            & st.track.ok
+    else:
+        boot = first & (fd.feats.valid.sum() >= 500)
+        mono_inited = torch.zeros_like(first)
+    use_init = mono_inited & ~ok
     eye = torch.eye(3, dtype=f32, device=dev)
-    pose = SE3(torch.where(first, eye, track2.R),
-               torch.where(first, torch.zeros(3, device=dev), track2.t))
-    ok = ok | boot
+    pose = SE3(torch.where(first, eye,
+                           torch.where(use_init, st.track.R, track2.R)),
+               torch.where(first, torch.zeros(3, device=dev),
+                           torch.where(use_init, st.track.t, track2.t)))
+    ok = ok | boot | mono_inited
     track = track2._replace(R=pose.R, t=pose.t, ok=ok)
 
     # ---- keyframe policy (NeedNewKeyFrame; the mapper is inline).
     peak = torch.maximum(st.peak_inliers, n_inl)
     fsk = st.frames_since_kf + 1
     need_close = (tracked_close < 100) & (untracked_close > 70)
-    ratio = t_cfg.kf_ref_ratio_stereo
+    ratio = t_cfg.kf_ref_ratio_mono if mono else t_cfg.kf_ref_ratio_stereo
     c1a = fsk >= t_cfg.max_frames_between_kf
     c1b = fsk >= t_cfg.min_frames_between_kf
     c2 = (n_inl < (ratio * peak.to(f32))) | need_close
-    need_kf = (ok & (n_inl > t_cfg.min_inliers_kf) & (c1a | (c1b & c2))) | boot
+    need_kf = ok & (n_inl > t_cfg.min_inliers_kf) & (c1a | (c1b & c2))
+    need_kf = (need_kf & ~mono_inited) | boot
 
     st = st._replace(track=track, dyn=dyn2, peak_inliers=peak,
                      frames_since_kf=fsk,
@@ -558,7 +795,8 @@ def _rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
                      (st.n_kf - 1).to(f32)[None]])
     fi = st.frame_idx % lim.max_frames
     traj = st.traj.index_copy(0, fi.reshape(1), row[None])
-    return st._replace(traj=traj, frame_idx=st.frame_idx + 1), made_kf
+    return (st._replace(traj=traj, frame_idx=st.frame_idx + 1),
+            n_new + made_kf, attempt)
 
 
 # --------------------------------------------------------------------- #
@@ -579,14 +817,16 @@ class RealtimeSlam:
     (``models.detector.YoloDetector``) runs on the uploaded frame every
     ``detect_every`` frames, and its boxes, left on the device, feed the
     dynamic step until the next detection; boxes the caller passes win.
+    ``cfg.sensor`` picks the entry: ``track`` (RGB-D), ``track_stereo`` or
+    ``track_mono``.
     """
 
     def __init__(self, cfg: SystemConfig, lim: Optional[RTLimits] = None,
                  device=None, vocabulary=None, maintain_every: int = 8,
                  detector=None, detect_every: int = 10):
         device = resolve_device(device, "RealtimeSlam")
-        if cfg.sensor != "rgbd":
-            raise NotImplementedError(f"sensor {cfg.sensor!r} is not ported yet")
+        if cfg.sensor not in ("rgbd", "stereo", "monocular"):
+            raise ValueError(f"unknown sensor {cfg.sensor!r}")
         self.cfg = cfg
         self.lim = lim or RTLimits()
         self.device = device
@@ -604,6 +844,10 @@ class RealtimeSlam:
         # program's loop bounds, known without a read.
         self._n_kf = 0
         self._bow_next = 0
+        # Mono: the initialisation attempts (frame, InitAttempt on the
+        # device) and the zero depth image, made once.
+        self.init_attempts = []
+        self._zero_depth = None
         self.maint = None
         self.mstate = None
         if vocabulary is not None:
@@ -636,19 +880,45 @@ class RealtimeSlam:
         return self._upload(arr)
 
     def track(self, gray, depth, stamp: float, boxes=None) -> None:
-        """Run one frame. gray/depth: [H, W] numpy arrays or tensors."""
-        g = self._upload(gray)
-        d = self._upload(depth)
+        """Run one RGB-D frame. gray/depth: [H, W] numpy arrays or
+        tensors."""
+        self._step(self._upload(gray), self._upload(depth), stamp, boxes)
+
+    def track_stereo(self, gray_left, gray_right, stamp: float,
+                     boxes=None) -> None:
+        """Run one rectified stereo pair (``cfg.sensor == "stereo"``):
+        depth comes from row-band disparity on the device."""
+        if self.cfg.sensor != "stereo":
+            raise ValueError("track_stereo needs cfg.sensor='stereo'")
+        self._step(self._upload(gray_left), self._upload(gray_right), stamp,
+                   boxes)
+
+    def track_mono(self, gray, stamp: float, boxes=None) -> None:
+        """Run one monocular frame (``cfg.sensor == "monocular"``): two-view
+        initialisation until the map exists, then triangulated spawning;
+        the map's scale is set by a median scene depth of 1 at
+        initialisation."""
+        if self.cfg.sensor != "monocular":
+            raise ValueError("track_mono needs cfg.sensor='monocular'")
+        if self._zero_depth is None:
+            self._zero_depth = torch.zeros(
+                (self.cfg.camera.height, self.cfg.camera.width),
+                dtype=torch.int32, device=self.device)
+        self._step(self._upload(gray), self._zero_depth, stamp, boxes)
+
+    def _step(self, g, d, stamp, boxes):
         if self.detector is not None \
                 and len(self.stamps) % self.detect_every == 0:
             self._det_boxes = self.detector.detect_device(g)
         if boxes is None:
             boxes = self._det_boxes
         self._gen.manual_seed(self._seed)
-        self.state, made_kf = _rt_step(g, d, self._boxes(boxes), self.state,
-                                       self.cfg, self.lim,
-                                       generator=self._gen)
-        self._n_kf += made_kf
+        self.state, n_new, attempt = _rt_step(
+            g, d, self._boxes(boxes), self.state, self.cfg, self.lim,
+            generator=self._gen, n_kf=self._n_kf)
+        if attempt is not None:
+            self.init_attempts.append((len(self.stamps), attempt))
+        self._n_kf += n_new
         self.stamps.append(stamp)
         self._seed += 1
         if self.maint is not None \
@@ -709,4 +979,10 @@ class RealtimeSlam:
         }
         if self.maint is not None:
             out.update(self.maint.report(self.mstate))
+        if self.cfg.sensor == "monocular":
+            out["init_attempts"] = [
+                {"frame": i, "ok": bool(a.ok),
+                 "homography": bool(a.used_homography),
+                 "good": int(a.n_good), "points": int(a.n_points)}
+                for i, a in self.init_attempts]
         return out

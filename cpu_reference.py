@@ -2,9 +2,9 @@
 
 Run from the repository root:
 
-    python3 cpu_reference.py jax {orbit,circuit,kidnap,selfdetect}
+    python3 cpu_reference.py jax {orbit,circuit,kidnap,selfdetect,stereo,mono}
     python3 cpu_reference.py jax refine {orbit,circuit}
-    python3 cpu_reference.py port {circuit,kidnap,selfdetect}
+    python3 cpu_reference.py port {circuit,kidnap,selfdetect,stereo,mono}
     python3 cpu_reference.py port refine circuit
 
 Drives one package on the CPU over one scene at the configuration of the
@@ -16,10 +16,17 @@ matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
   tracked, loops closed and the event log, relocalizations, bank entries,
   keyframes, the keyframes processed (``bow_next``) and the keyframe count
   at the last dispatch.
-- ``selfdetect`` ([8]): one pass of the dynamic orbit with no
-  ground-truth boxes, ``RealtimeSlam(detector=, detect_every=3)`` on
-  ``artifacts/detector_walker.npz``: ATE, frames tracked, keyframes,
+- ``selfdetect`` ([8]): the first N_SELFDETECT frames of the dynamic
+  orbit with no ground-truth boxes, ``RealtimeSlam(detector=,
+  detect_every=3)`` on ``artifacts/detector_walker.npz``: ATE, frames tracked, keyframes,
   detections dispatched and the mean best box IoU on every 10th frame.
+- ``stereo`` ([11]): the wide-baseline dynamic stereo scene at full width
+  (``track_stereo``, the walker's ground-truth boxes): ATE, frames
+  tracked, keyframes and live points.
+- ``mono`` ([12]): the monocular orbit at full width (``track_mono``):
+  the first tracked frame, frames lost after it, the Sim3-aligned ATE over
+  the tracked frames, keyframes, and each initialisation attempt (whether
+  it succeeded, H or F, the points triangulated).
 - ``refine orbit|circuit`` ([10]): the session of [4] or [6], then the
   handoff (``to_arena``), global BA and ``refined_trajectory``: the
   arena's keyframes and points, the observations cut (``truncated_obs``),
@@ -37,8 +44,12 @@ import time
 
 import numpy as np
 
-from chip_smoke import (CIRCUIT_LIMITS, DETECT_EVERY, circuit_config,
-                        mean_best_iou, refine_report, walker_detector)
+from chip_smoke import (CIRCUIT_LIMITS, DETECT_EVERY, MONO_RADIUS, N_MONO,
+                        N_SELFDETECT, N_STEREO, STEREO_BLUR, STEREO_WALKER,
+                        circuit_config, mean_best_iou, mono_config,
+                        mono_scene, mono_summary, refine_report,
+                        stereo_blurred, stereo_config, stereo_scene,
+                        walker_detector)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VOCAB = os.path.join(ROOT, "artifacts", "vocab_1e5.npz")
@@ -95,10 +106,85 @@ def _refine(res, cfg, gt, ate, handoff, gba, **kw):
     return out
 
 
+def _sensor_summary(res, gt, ate, mono):
+    est = np.asarray([-R.T @ t for R, t in zip(res["R"], res["t"])])
+    if mono:
+        out = mono_summary(res["ok"], est, gt, ate)
+    else:
+        n = len(est)
+        out = {"ate_m": float(ate.ate_rmse(res["stamps"], est,
+                                           np.arange(n) / 30.0, gt)["rmse"]),
+               "ok": int(res["ok"].sum()), "n": n}
+    out.update(n_kf=int(res["n_kf"]), live_points=int(res["pt_valid"].sum()))
+    return out
+
+
+def run_jax_sensor(scene):
+    """[11] or [12] on the JAX package: the scene of tests/test_stereo_wide.py
+    or tests/test_realtime_mono.py at full width."""
+    import jax
+    import jax.numpy as jnp
+    from coebslam_tpu import config
+    from coebslam_tpu.eval import ate
+    from coebslam_tpu.geometry.se3 import SE3
+    from coebslam_tpu.ops import initializer_ops
+    from coebslam_tpu.slam.realtime import RealtimeSlam
+    from coebslam_tpu.utils import replica, synthetic
+    planes = synthetic.make_room(seed=0)
+    if scene == "mono":
+        cfg = mono_config(config)
+        poses = synthetic.camera_trajectory(N_MONO, radius=MONO_RADIUS)
+        render = jax.jit(lambda p: synthetic.render(cfg.camera, p, planes)[0])
+        attempts = []
+        orig = initializer_ops.reconstruct_graph
+
+        def logged(*a, **kw):
+            r = orig(*a, **kw)
+            jax.debug.callback(
+                lambda ok, h, n: attempts.append(
+                    {"ok": bool(ok), "homography": bool(h),
+                     "good": int(n)}), r.ok, r.used_homography, r.good.sum())
+            return r
+
+        initializer_ops.reconstruct_graph = logged
+        rt = RealtimeSlam(cfg)
+        for i, p in enumerate(poses):
+            rt.track_mono(np.asarray(render(p)), stamp=i / 30.0)
+    else:
+        cfg = stereo_config(config)
+        walker = synthetic.make_walker(**STEREO_WALKER)
+        poses = replica.walking_trajectory(N_STEREO, seed=3)
+        b = cfg.camera.baseline
+        render = jax.jit(lambda p, i: synthetic.render(
+            cfg.camera, p, planes, walker, i)[:3])
+        rt = RealtimeSlam(cfg)
+        for i, p in enumerate(poses):
+            gl, _, box = render(p, jnp.asarray(i, jnp.float32))
+            t_r = np.asarray(p.t) - np.asarray([b, 0.0, 0.0], np.float32)
+            gr = render(SE3(p.R, jnp.asarray(t_r)),
+                        jnp.asarray(i, jnp.float32))[0]
+            gl, gr = np.asarray(gl), np.asarray(gr)
+            if stereo_blurred(i):
+                gl = replica._box_blur(gl, STEREO_BLUR[2])
+                gr = replica._box_blur(gr, STEREO_BLUR[2])
+            boxes = np.asarray(box)[None]
+            rt.track_stereo(gl.astype(np.float32), gr.astype(np.float32),
+                            stamp=i / 30.0,
+                            boxes=boxes if boxes[0, 0] >= 0 else None)
+    rt.block()
+    gt = np.asarray([-np.asarray(p.R).T @ np.asarray(p.t) for p in poses])
+    out = _sensor_summary(rt.finish(), gt, ate, scene == "mono")
+    if scene == "mono":
+        out["init_attempts"] = attempts
+    return out
+
+
 def run_jax(scene, refine):
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
+    if scene in ("stereo", "mono"):
+        return run_jax_sensor(scene)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from coebslam_tpu import config
     from coebslam_tpu.config import SystemConfig
@@ -127,12 +213,13 @@ def run_jax(scene, refine):
         if scene == "selfdetect":
             det = walker_detector(config, detector, cfg.dynamic)
             rt = RealtimeSlam(cfg, detector=det, detect_every=DETECT_EVERY)
+            frames = frames[:N_SELFDETECT]
             for i, (g, d, _) in enumerate(frames):
                 rt.track(g, d, stamp=i / 30.0)
             rt.block()
-            out = _summary(rt, rt.finish(), [], c, ate, 0)
+            out = _summary(rt, rt.finish(), [], c[:N_SELFDETECT], ate, 0)
             gray = [f[0] for f in frames]
-            out.update(detections=-(-N_ORBIT // DETECT_EVERY),
+            out.update(detections=-(-N_SELFDETECT // DETECT_EVERY),
                        box_iou=mean_best_iou(det.detect, gray,
                                              [f[2] for f in frames]))
             return out
@@ -175,13 +262,32 @@ def run_jax(scene, refine):
 
 def run_port(scene, refine):
     sys.path.insert(0, ROOT)
+    import torch
     from coebslam_tpu_torch import config
     from coebslam_tpu_torch.eval import ate
     from coebslam_tpu_torch.models import detector
     from coebslam_tpu_torch.slam import handoff, vocabulary
     from coebslam_tpu_torch.slam.global_ba import GlobalBA
     from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
-    from coebslam_tpu_torch.utils import synthetic
+    from coebslam_tpu_torch.utils import replica, synthetic
+    if scene == "stereo":
+        cfg = stereo_config(config)
+        frames, gt = stereo_scene(torch, synthetic, replica, cfg.camera,
+                                  "cpu")
+        rt = RealtimeSlam(cfg, device="cpu")
+        for i, (gl, gr, b) in enumerate(frames):
+            rt.track_stereo(gl, gr, stamp=i / 30.0, boxes=b)
+        return _sensor_summary(rt.finish(), gt, ate, False)
+    if scene == "mono":
+        cfg = mono_config(config)
+        frames, gt = mono_scene(synthetic, cfg.camera, "cpu")
+        rt = RealtimeSlam(cfg, device="cpu")
+        for i, g in enumerate(frames):
+            rt.track_mono(g, stamp=i / 30.0)
+        res = rt.finish()
+        out = _sensor_summary(res, gt, ate, True)
+        out["init_attempts"] = res["init_attempts"]
+        return out
     if scene == "selfdetect":
         cfg = config.SystemConfig()
         G, D, B, C = synthetic.dynamic_orbit(cfg.camera, N_ORBIT,
@@ -189,11 +295,12 @@ def run_port(scene, refine):
         det = walker_detector(config, detector, cfg.dynamic, device="cpu")
         rt = RealtimeSlam(cfg, device="cpu", detector=det,
                           detect_every=DETECT_EVERY)
-        for i in range(N_ORBIT):
+        for i in range(N_SELFDETECT):
             rt.track(G[i], D[i], stamp=i / 30.0)
-        out = _summary(rt, rt.finish(), [], C, ate, 0)
+        out = _summary(rt, rt.finish(), [], C[:N_SELFDETECT], ate, 0)
         out.update(detections=det.dispatches,
-                   box_iou=mean_best_iou(det.detect, G, B))
+                   box_iou=mean_best_iou(det.detect, G[:N_SELFDETECT],
+                                         B[:N_SELFDETECT]))
         return out
     cfg = circuit_config(config)
     lim = RTLimits(**CIRCUIT_LIMITS)
@@ -228,7 +335,7 @@ def main():
         sys.exit(__doc__)
     pkg, scene = args
     scenes = ("orbit", "circuit") if refine else (
-        "orbit", "circuit", "kidnap", "selfdetect")
+        "orbit", "circuit", "kidnap", "selfdetect", "stereo", "mono")
     if pkg not in ("jax", "port") or scene not in scenes \
             or (pkg, scene) == ("port", "orbit"):
         sys.exit(__doc__)

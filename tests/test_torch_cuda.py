@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels against
-their plain PyTorch versions, and the maintenance program, the detector
-and the global BA against their CPU runs, on the card. Without a card
+their plain PyTorch versions, and the maintenance program, the detector,
+the global BA, the stereo frame and the two-view initializer against
+their CPU runs, on the card. Without a card
 they skip.
 
 They import neither JAX nor the JAX package, so they also run on a machine
@@ -306,3 +307,112 @@ def test_global_ba_on_card_matches_cpu(card):
     np.testing.assert_allclose(b.kf_R[kf], a.kf_R[kf], atol=1e-4)
     np.testing.assert_allclose(b.kf_t[kf], a.kf_t[kf], atol=1e-4)
     np.testing.assert_allclose(b.pt_pos[pts], a.pt_pos[pts], atol=1e-3)
+
+
+# --------------------------------------------------------------------- #
+# the stereo frame and the two-view initializer on the card against the CPU
+# --------------------------------------------------------------------- #
+
+def test_process_stereo_on_card_matches_cpu(card):
+    """A full-width wide-baseline stereo pair: the FAST kernel runs on both
+    images (two launches), and features, matches and depth agree with the
+    CPU run: valid equal, uv within 1e-4, descriptors bit-equal on
+    >= 99.5 % of keypoints (orientations may differ in their last bits),
+    match validity equal on >= 99.5 %, depth within 1e-4 relative where
+    both matched."""
+    from coebslam_tpu_torch.config import CameraConfig
+    from coebslam_tpu_torch.geometry.se3 import SE3
+    from coebslam_tpu_torch.slam import frame as tframe
+    cfg = SystemConfig(camera=CameraConfig(bf=160.0), sensor="stereo")
+    planes = synthetic.make_room(seed=0, device=card)
+    pose = synthetic.camera_trajectory(30)[0]
+    shift = torch.tensor([cfg.camera.baseline, 0.0, 0.0])
+    gl = synthetic.render(cfg.camera, pose, planes)[0]
+    gr = synthetic.render(cfg.camera, SE3(pose.R, pose.t - shift), planes)[0]
+    n0 = fast_cuda.LAUNCHES
+    fk = tframe.process_stereo(gl, gr, cfg.camera, cfg.orb)
+    torch.cuda.synchronize()
+    assert fast_cuda.LAUNCHES == n0 + 2
+    fc = tframe.process_stereo(gl.cpu(), gr.cpu(), cfg.camera, cfg.orb)
+    v = fc.feats.valid
+    assert torch.equal(fk.feats.valid.cpu(), v)
+    assert float((fk.feats.uv.cpu() - fc.feats.uv)[v].abs().max()) <= 1e-4
+    same = (fk.feats.desc.cpu() == fc.feats.desc).all(1)
+    assert float(same[v].float().mean()) >= 0.995
+    mk, mc = fk.depth.cpu() > 0, fc.depth > 0
+    assert int(mc.sum()) > 300
+    assert float((mk == mc).float().mean()) >= 0.995
+    both = mk & mc
+    assert torch.allclose(fk.depth.cpu()[both], fc.depth[both], rtol=1e-4)
+
+
+def _two_view(seed, planar):
+    """Points in front of camera 1 (on z = 4 when planar), camera 2 at a
+    fixed small motion, 0.3 px noise, from a numpy seed (as
+    tests/test_torch_mono.py's scenes)."""
+    from coebslam_tpu_torch.geometry import se3
+    cam = SystemConfig().camera
+    rng = np.random.RandomState(seed)
+    n = 300
+    z = np.full(n, 4.0) if planar else rng.uniform(2.5, 7.0, n)
+    X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), z],
+                 -1).astype(np.float32)
+    T2 = se3.exp(torch.tensor([0.02, -0.04, 0.01, 0.3, 0.05, 0.02]))
+    X2 = X @ T2.R.numpy().T + T2.t.numpy()
+    proj = lambda P: np.stack([cam.fx * P[:, 0] / P[:, 2] + cam.cx,
+                               cam.fy * P[:, 1] / P[:, 2] + cam.cy], -1)
+    noise = 0.3 * rng.randn(n, 2)
+    uv1, uv2 = proj(X), proj(X2)
+    inb = ((uv1 > 5) & (uv1 < [635.0, 475.0])).all(1) \
+        & ((uv2 > 5) & (uv2 < [635.0, 475.0])).all(1)
+    return (torch.from_numpy((uv1 + noise).astype(np.float32)),
+            torch.from_numpy((uv2 + noise).astype(np.float32)),
+            torch.from_numpy(inb), cam)
+
+
+@pytest.mark.parametrize("planar", [False, True], ids=["general", "planar"])
+def test_reconstruct_graph_on_card_matches_cpu(card, planar):
+    """The two-view initializer with the same draws on the card and the
+    CPU. The batched wide [8, 9] gesvd gives each hypothesis' null space to
+    the float32 conditioning of the pixel-coordinate DLT (the median
+    hypothesis within 1e-2 of the CPU's, scaled to H[2, 2] = 1). The model
+    the RH rule picks scores within 1e-2 of the CPU's; the other within
+    5e-2 (on the general scene the best of 200 poor homographies can be
+    another one: 512.6 on the CPU, 4.4 % apart on the card). From the same
+    models, motion recovery agrees within 1e-4 (R, t) with good sets equal
+    on >= 99 %; the whole initializer on the card picks the same model and
+    R within 1e-2 of the CPU's."""
+    from coebslam_tpu_torch.ops import fundamental, initializer_ops as ti
+    uv1, uv2, inb, cam = _two_view(4 if planar else 0, planar)
+    g = torch.Generator().manual_seed(1)
+    idx_h = fundamental.sample_indices(inb, 200, g, k=4)
+    idx_f = fundamental.sample_indices(inb, 200, g, k=8)
+    H_cpu = ti._dlt_homography(uv1[idx_h], uv2[idx_h])
+    H_gpu = ti._dlt_homography(uv1.to(card)[idx_h.to(card)],
+                               uv2.to(card)[idx_h.to(card)]).cpu()
+    norm = lambda H: H / H[:, 2:3, 2:3]
+    rel = ((norm(H_gpu) - norm(H_cpu)).abs().amax((1, 2))
+           / norm(H_cpu).abs().amax((1, 2)))
+    assert float(rel.median()) <= 1e-2, float(rel.median())
+    args = (uv1, uv2, inb)
+    m_cpu = ti.fit_models(*args, idx_h, idx_f)
+    m_gpu = ti.fit_models(*[x.to(card) for x in args], idx_h.to(card),
+                          idx_f.to(card))
+    for a, b, chosen in ((m_gpu.score_h, m_cpu.score_h, planar),
+                         (m_gpu.score_f, m_cpu.score_f, not planar)):
+        tol = 1e-2 if chosen else 5e-2
+        assert abs(float(a) - float(b)) <= tol * abs(float(b)), (a, b)
+    r_cpu = ti.recover_motion(m_cpu, uv1, uv2, cam)
+    r_gpu = ti.recover_motion(_to(m_cpu, card), uv1.to(card), uv2.to(card),
+                              cam)
+    assert bool(r_gpu.used_homography) == bool(r_cpu.used_homography) \
+        == planar
+    assert bool(r_gpu.ok) and bool(r_cpu.ok)
+    assert torch.allclose(r_gpu.R.cpu(), r_cpu.R, atol=1e-4)
+    assert torch.allclose(r_gpu.t.cpu(), r_cpu.t, atol=1e-4)
+    assert float((r_gpu.good.cpu() == r_cpu.good).float().mean()) >= 0.99
+    full = ti.reconstruct_graph(uv1.to(card), uv2.to(card), inb.to(card),
+                                cam, idx_h.to(card), idx_f.to(card))
+    ref = ti.reconstruct_graph(uv1, uv2, inb, cam, idx_h, idx_f)
+    assert bool(full.ok) and bool(full.used_homography) == planar
+    assert torch.allclose(full.R.cpu(), ref.R, atol=1e-2)

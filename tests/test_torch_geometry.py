@@ -123,11 +123,13 @@ def test_config_from_dict_matches_jax_config():
     jc = jcfg.SystemConfig(
         camera=jcfg.CameraConfig(width=320, height=240, fx=300.0),
         orb=jcfg.OrbConfig(n_levels=4, max_keypoints=1024),
-        tracking=jcfg.TrackingConfig(max_frames_between_kf=3))
+        tracking=jcfg.TrackingConfig(max_frames_between_kf=3),
+        ransac=jcfg.RansacConfig(init_iterations=64, init_sigma=1.5),
+        sensor="monocular")
     for j, t in ((jcfg.SystemConfig(), tcfg.SystemConfig()),
                  (jc, tcfg.config_from_dict(dataclasses.asdict(jc)))):
         for sec in ("camera", "orb", "dynamic", "matcher", "optimizer",
-                    "tracking", "loop", "map", "detector"):
+                    "tracking", "loop", "map", "ransac", "detector"):
             tsec = dataclasses.asdict(getattr(t, sec))
             jsec = dataclasses.asdict(getattr(j, sec))
             assert tsec == {k: jsec[k] for k in tsec}, sec
@@ -143,6 +145,9 @@ def test_brief_pattern_bit_identical():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "coebslam_tpu_torch").rglob("*.py"))
     assert ROOT / "coebslam_tpu_torch" / "models" / "yolov5.py" in files
+    for new in ("ops/initializer_ops.py", "ops/triangulation.py",
+                "utils/replica.py"):
+        assert ROOT / "coebslam_tpu_torch" / new in files
     files.append(ROOT / "chip_smoke.py")
     pat = re.compile(r"^\s*(import|from)\s+(jax\b|coebslam_tpu\b(?!_torch))",
                      re.M)

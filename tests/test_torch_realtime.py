@@ -67,28 +67,47 @@ def test_rt_step_state_by_state():
         st_np = jax.tree.map(np.asarray, step(
             jnp.asarray(g), jnp.asarray(d), jnp.asarray(no_boxes),
             np.uint32(i), jax.tree.map(jnp.asarray, st_np)))
-        j, t = st_np, st_t
-        tn = lambda x: x.numpy()
-        for k in ("n_kf", "frame_idx", "frames_since_kf", "budget",
-                  "consec_ok", "strong_frames", "n_lost", "n_assoc"):
-            assert int(getattr(j, k)) == int(getattr(t, k)), (i, k)
-        assert bool(j.track.ok) == bool(t.track.ok)
-        assert abs(int(j.peak_inliers) - int(t.peak_inliers)) <= 2
-        np.testing.assert_allclose(tn(t.track.R), j.track.R, atol=1e-4)
-        np.testing.assert_allclose(tn(t.track.t), j.track.t, atol=1e-4)
-        assert _share(tn(t.track.pids), j.track.pids) >= 0.99, i
-        np.testing.assert_array_equal(tn(t.kf_lid), j.kf_lid)
-        assert _share(tn(t.kf_pid), j.kf_pid) >= 0.99, i
-        np.testing.assert_allclose(tn(t.kf_R), j.kf_R, atol=1e-4)
-        np.testing.assert_allclose(tn(t.kf_t), j.kf_t, atol=1e-4)
-        assert _share(tn(t.pt_valid), j.pt_valid) >= 0.995, i
-        both = tn(t.pt_valid) & j.pt_valid
-        assert np.abs(tn(t.pt_pos)[both] - j.pt_pos[both]).max(initial=0) \
-            <= 1e-3
-        np.testing.assert_allclose(tn(t.traj), j.traj, atol=1e-4)
-        np.testing.assert_array_equal(tn(t.dyn.sticky), j.dyn.sticky)
-        n_kf_seen.append(int(j.n_kf))
+        assert_states_close(st_np, st_t, i)
+        n_kf_seen.append(int(st_np.n_kf))
     assert n_kf_seen[0] == 1 and n_kf_seen[-1] >= 3     # boot + 2 BA'd KFs
+
+
+def assert_states_close(j, t, i, permuted=False):
+    """The reference's state ``j`` (numpy leaves) against the port's ``t``
+    after the same step: counters equal, poses within 1e-4, point ids
+    equal on >= 99 % of keypoints, live points equal on >= 99.5 % of rows
+    and within 1e-3 where live on both, trajectory within 1e-4.
+
+    ``permuted``: keypoints that tie in the extractor's slot order may sit
+    in other slots, and so spawn into other point rows; then at most 1 % of
+    the rows live on both may differ, each within 1e-3 of a live point of
+    the reference."""
+    tn = lambda x: x.numpy()
+    for k in ("n_kf", "frame_idx", "frames_since_kf", "budget",
+              "consec_ok", "strong_frames", "n_lost", "n_assoc"):
+        assert int(getattr(j, k)) == int(getattr(t, k)), (i, k)
+    assert bool(j.track.ok) == bool(t.track.ok)
+    assert abs(int(j.peak_inliers) - int(t.peak_inliers)) <= 2
+    np.testing.assert_allclose(tn(t.track.R), j.track.R, atol=1e-4)
+    np.testing.assert_allclose(tn(t.track.t), j.track.t, atol=1e-4)
+    assert _share(tn(t.track.pids), j.track.pids) >= 0.99, i
+    np.testing.assert_array_equal(tn(t.kf_lid), j.kf_lid)
+    assert _share(tn(t.kf_pid), j.kf_pid) >= 0.99, i
+    np.testing.assert_allclose(tn(t.kf_R), j.kf_R, atol=1e-4)
+    np.testing.assert_allclose(tn(t.kf_t), j.kf_t, atol=1e-4)
+    assert _share(tn(t.pt_valid), j.pt_valid) >= 0.995, i
+    both = tn(t.pt_valid) & j.pt_valid
+    err = np.abs(tn(t.pt_pos)[both] - j.pt_pos[both]).max(1)
+    off = err > 1e-3
+    if permuted and off.any():
+        ref = j.pt_pos[j.pt_valid]
+        moved = tn(t.pt_pos)[both][off]
+        nearest = np.abs(moved[:, None] - ref[None]).max(-1).min(1)
+        assert off.mean() <= 0.01 and nearest.max() <= 1e-3, i
+    else:
+        assert err.max(initial=0) <= 1e-3, i
+    np.testing.assert_allclose(tn(t.traj), j.traj, atol=1e-4)
+    np.testing.assert_array_equal(tn(t.dyn.sticky), j.dyn.sticky)
 
 
 def test_state_from_numpy_round_trip():
@@ -156,12 +175,15 @@ def test_renderer_matches():
 
 @pytest.mark.parametrize("entry", [
     lambda: trt.RealtimeSlam(tcfg.SystemConfig()),
+    lambda: trt.RealtimeSlam(tcfg.SystemConfig(sensor="stereo")),
+    lambda: trt.RealtimeSlam(tcfg.SystemConfig(sensor="monocular")),
     lambda: tsyn.make_room(seed=0),
     lambda: tsyn.make_walker(),
     lambda: tsyn.dynamic_orbit(tcfg.CameraConfig(), 1),
     lambda: tmaint.Maintainer(tcfg.SystemConfig(), trt.RTLimits(), None),
     lambda: tsyn.six_wall_room(),
-], ids=["RealtimeSlam", "make_room", "make_walker", "dynamic_orbit",
+], ids=["RealtimeSlam", "RealtimeSlam_stereo", "RealtimeSlam_mono",
+        "make_room", "make_walker", "dynamic_orbit",
         "Maintainer", "six_wall_room"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """With no device given, an entry point runs on CUDA, and raises where
