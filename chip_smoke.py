@@ -88,7 +88,17 @@ Phases (each one failing the run with a non-zero exit when it fails):
      the time of one initialisation attempt (CUDA events around one
      reconstruct_graph on the initialising frame's correspondences, with
      its host syncs counted), fps, syncs per frame and peak device memory.
-Each of [4] and [6]-[12] prints the JAX package's result on the CPU for the
+ 13. The host-orchestrated System (slam/system.py: Tracker + LocalMapper,
+     synchronous mapping, no vocabulary, no detector; SystemConfig() at full
+     width) on the first 60 frames of the 400-frame TUM replica (seed 0),
+     rendered on the card in the wire's quantisation (depth d16 / 5000),
+     with the walker's boxes through the text format. At most 5 frames
+     lost, ATE < 8 cm (tests/test_tum_replica.py::test_host_path_ate's
+     gates) and one FAST launch per frame. Prints keyframes, live points,
+     local BAs, culled keyframes and points, host syncs per frame, fps with
+     the card drained at the end, the mapper's stage ms and peak device
+     memory (profile_host.py runs this phase alone, and in realtime mode).
+Each of [4] and [6]-[13] prints the JAX package's result on the CPU for the
 same scene and configuration beside its own, and the peak device memory.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
@@ -173,6 +183,16 @@ MONO_RADIUS = 0.8
 MONO_FIRST_OK_MAX = 10
 MONO_MAX_LOST_AFTER = 3
 MONO_ATE_LIMIT_M = 0.05          # Sim3-aligned, tracked frames only
+# [13]: the host-orchestrated System on the TUM replica (bench.py
+# bench_replica_host; tests/test_tum_replica.py::test_host_path_ate's
+# configuration and gates): the first N_HOST frames of the 400-frame
+# replica schedule, seed 0.
+N_HOST = 60                      # bench.py REPLICA_HOST_FRAMES
+HOST_SCHEDULE = dict(n_frames=400, seed=0)
+HOST_MAX_LOST = 5
+HOST_ATE_LIMIT_M = 0.08
+JAX_CPU_HOST = dict(ok=60, lost=0, ate_m=0.002227, n_kf=9, live_points=811,
+                    local_ba=11, culled_kf=4, culled_pt=825)
 
 # Canvases for the FAST kernel's edges (its tiles are 64 x 32 px): name,
 # H, W, the true extent of each level, and the values in it: "uniform" in
@@ -465,6 +485,76 @@ def loop_scene(device, sched, bias, synthetic, cam):
     return frames, gt
 
 
+def replica_host_frames(replica, n, device):
+    """[13]'s scene: the first ``n`` frames of the replica schedule rendered
+    on ``device``, as (stamp, grey uint8, depth float metres = d16 / 5000
+    as io/tum.load_frame reads it, the walker boxes through the text's
+    %.1f or None), and the ground-truth camera centres from the
+    ground-truth lines."""
+    frames, gt = [], []
+    for f in replica.generate(**HOST_SCHEDULE, frames=range(n),
+                              device=device):
+        depth = f.depth.astype(np.float32) / replica.DEPTH_FACTOR
+        frames.append((f.stamp, f.gray, depth,
+                       f.boxes if len(f.boxes) else None))
+        gt.append([float(x) for x in f.gt_line.split()[1:4]])
+    return frames, np.asarray(gt)
+
+
+def run_host(sysm, frames):
+    """Drive a host System over ``frames``; returns the per-frame states
+    (in realtime mode, where a call returns an earlier frame's state, they
+    come from the trajectory records' lost flags)."""
+    states = []
+    for stamp, g, d, b in frames:
+        states.append(sysm.track_rgbd(g, d, stamp=stamp, boxes=b)[0])
+    sysm.shutdown()
+    if sysm.tracker.pipelined:
+        states = ["LOST" if r[-1] else "OK"
+                  for r in sysm.tracker.traj_relative]
+    return states
+
+
+def host_summary(sysm, states, gt_stamps, gt, ate):
+    """[13]'s gates' numbers: frames OK and lost, the ATE of the tracked
+    trajectory (tests/test_tum_replica.py::test_host_path_ate), keyframes
+    and live points, and the mapper's culls and local BAs."""
+    traj = sysm.tracker.trajectory
+    stamps = np.asarray([s for s, _, _ in traj])
+    est = np.asarray([-R.T @ t for _, R, t in traj])
+    rmse = float(ate.ate_rmse(stamps, est, np.asarray(gt_stamps),
+                              gt)["rmse"])
+    m = sysm.map
+    out = {"ok": states.count("OK"), "lost": len(states) - states.count("OK"),
+           "n": len(states), "ate_m": rmse,
+           "n_kf": int(len(m.valid_keyframes())),
+           "live_points": int(len(m.valid_points()))}
+    mp = getattr(sysm, "mapper", None)
+    if mp is not None and hasattr(mp, "n_local_ba"):
+        out.update(culled_kf=mp.n_culled_kf, culled_pt=mp.n_culled_pt,
+                   local_ba=mp.n_local_ba)
+    return out
+
+
+def host_phase(torch, fast_cuda, sysm, frames, gt, ate):
+    """[13]'s run on the card: FAST launches and host syncs counted over
+    the frames, the card drained at the end. Returns (launches, syncs,
+    sync sites, seconds, peak MiB, host_summary, mapper stage ms)."""
+    fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
+    torch.cuda.synchronize()
+    with count_host_syncs(torch) as sites:
+        t0 = time.perf_counter()
+        states = run_host(sysm, frames)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = fast_cuda.LAUNCHES
+    mem = peak_mib(torch)
+    hs = host_summary(sysm, states, [f[0] for f in frames], gt, ate)
+    return (launches, sum(sites.values()), sites, secs, mem, hs,
+            dict(sysm.mapper.stage_ms))
+
+
 def run_maintained(rt, frames):
     """Track ``frames`` (grey, depth pairs on the card) at 30 fps stamps."""
     for i, (g, d) in enumerate(frames):
@@ -591,6 +681,7 @@ def main():
     from coebslam_tpu_torch.slam import handoff, vocabulary
     from coebslam_tpu_torch.slam.global_ba import GlobalBA
     from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
+    from coebslam_tpu_torch.slam.system import System
     from coebslam_tpu_torch.utils import replica, synthetic
 
     dev = torch.device("cuda")
@@ -1065,6 +1156,38 @@ def main():
         _fail(f"mono Sim3 ATE {ms_['ate_sim3_m']} m >= {MONO_ATE_LIMIT_M} m")
     if mo_launches != n:
         _fail(f"mono: {mo_launches} FAST launches for {n} frames")
+    # ---- 13. the host-orchestrated System on the TUM replica
+    t0 = time.perf_counter()
+    hframes, hgt = replica_host_frames(replica, N_HOST, dev)
+    print(f"[13] rendered the first {N_HOST} frames of the 400-frame replica "
+          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    h_launches, h_syncs, h_sites, h_s, h_mem, hs, stage_ms = \
+        host_phase(torch, fast_cuda, System(SystemConfig()), hframes, hgt,
+                   ate)
+    j = JAX_CPU_HOST
+    print(f"[13] host System, synchronous mapping (JAX package on CPU in "
+          f"brackets): frames OK {hs['ok']}/{hs['n']} ({j['ok']}), lost "
+          f"{hs['lost']} ({j['lost']}; gate <= {HOST_MAX_LOST}), ATE "
+          f"{hs['ate_m'] * 100:.3f} cm ({j['ate_m'] * 100:.3f}; limit "
+          f"{HOST_ATE_LIMIT_M * 100:.0f} cm), keyframes {hs['n_kf']} "
+          f"({j['n_kf']}), live points {hs['live_points']} "
+          f"({j['live_points']}), local BAs {hs['local_ba']} "
+          f"({j['local_ba']}), culled keyframes {hs['culled_kf']} "
+          f"({j['culled_kf']}) and points {hs['culled_pt']} "
+          f"({j['culled_pt']})", flush=True)
+    print(f"[13] FAST launches {h_launches} for {hs['n']} frames; host syncs "
+          f"{h_syncs} = {h_syncs / hs['n']:.2f} per frame {h_sites}; "
+          f"{hs['n']} frames in {h_s:.1f} s ({hs['n'] / h_s:.2f} fps, the "
+          f"card drained at the end); mapper stage ms "
+          f"{ {k: round(v, 1) for k, v in stage_ms.items()} }; peak device "
+          f"memory {h_mem:.1f} MiB; on {card_line}", flush=True)
+    if hs["lost"] > HOST_MAX_LOST:
+        _fail(f"host System: {hs['lost']} frames lost")
+    if not np.isfinite(hs["ate_m"]) or hs["ate_m"] >= HOST_ATE_LIMIT_M:
+        _fail(f"host System ATE {hs['ate_m']} m >= {HOST_ATE_LIMIT_M} m")
+    if h_launches != hs["n"]:
+        _fail(f"host System: {h_launches} FAST launches for {hs['n']} "
+              f"frames")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
@@ -1081,7 +1204,8 @@ def main():
         "launches_by_path": {"orbit": launches, "circuit": circ_launches,
                              "kidnap": kid_launches,
                              "selfdetect": sd_launches,
-                             "stereo": st_launches, "mono": mo_launches},
+                             "stereo": st_launches, "mono": mo_launches,
+                             "host_replica": h_launches},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

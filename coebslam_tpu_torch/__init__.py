@@ -1,11 +1,13 @@
 """coebslam_tpu_torch — the PyTorch/CUDA port of coebslam_tpu.
 
-The port runs the zero-sync realtime RGB-D path (extraction, the COEB
-dynamic front-end with the YOLOv5 detector in the stream, tracking,
-keyframing and windowed BA), its maintenance program (BoW loop closing,
-the place bank, relocalization) and the offline refinement of a finished
-session (handoff to a host map, global BA) as PyTorch code on an NVIDIA
-GPU, with the FAST corner kernel written by hand
+The port runs the zero-sync realtime RGB-D, stereo and monocular paths
+(extraction, the COEB dynamic front-end with the YOLOv5 detector in the
+stream, tracking, keyframing and windowed BA), their maintenance program
+(BoW loop closing, the place bank, relocalization), the offline
+refinement of a finished session (handoff to a host map, global BA) and
+the host-orchestrated RGB-D ``System`` (host tracker, covisibility mapper
+with culling) as PyTorch code on an NVIDIA GPU, with the FAST corner
+kernel written by hand
 in CUDA C++ (``csrc/fast.cu``). Module paths mirror the JAX package so each counterpart
 is found under the same name; this package imports neither JAX nor the JAX
 package.
@@ -18,10 +20,13 @@ ops        pyramid, FAST (+ CUDA kernel), grid selection, BRIEF, matching,
 optim      pose-only Gauss-Newton, Schur-complement local and global BA,
            Sim3 pose graph
 models     YOLOv5s network, decode and fixed-size NMS; the detector
-slam       frame constructor, dynamic front-end, tracking step, realtime
-           loop, BoW vocabulary, maintenance program, host map arena and
-           its device mirror, global BA, handoff and refine
-utils      synthetic RGB-D renderer (the room, the walker, the loop circuit)
+slam       frame constructor, dynamic front-end, tracking step and host
+           tracker, realtime loop, BoW vocabulary, maintenance program,
+           host map arena and its device mirror, local mapper, System
+           facade, global BA, handoff and refine
+utils      synthetic RGB-D renderer (the room, the walker, the loop
+           circuit), the TUM-format replica scenes, metrics
+io         TUM and KITTI trajectory files
 eval       ATE metric
 """
 

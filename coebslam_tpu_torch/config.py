@@ -151,6 +151,25 @@ class TrackingConfig:
 
 
 @dataclass(frozen=True)
+class MappingConfig:
+    """Local mapping constants (the host path's ``LocalMapper``)."""
+
+    # MapPointCulling.
+    min_found_ratio: float = 0.25
+    min_observations: int = 3
+    # Triangulation gates.
+    triangulation_chi2_mono: float = 5.991
+    triangulation_chi2_stereo: float = 7.8
+    covisibility_weight_threshold: int = 15
+    # KeyFrameCulling: >= 90 % of points seen >= 3x elsewhere.
+    kf_cull_redundancy_ratio: float = 0.9
+    kf_cull_min_obs: int = 3
+    # Covisible neighbours paired for triangulation (RGB-D / mono).
+    triangulation_neighbors_rgbd: int = 10
+    triangulation_neighbors_mono: int = 20
+
+
+@dataclass(frozen=True)
 class LoopConfig:
     """Loop closing constants (the maintenance program reads
     ``covisibility_consistency_threshold``, ``min_score_factor`` and
@@ -213,6 +232,7 @@ class SystemConfig:
     matcher: MatcherConfig = field(default_factory=MatcherConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
+    mapping: MappingConfig = field(default_factory=MappingConfig)
     loop: LoopConfig = field(default_factory=LoopConfig)
     map: MapConfig = field(default_factory=MapConfig)
     ransac: RansacConfig = field(default_factory=RansacConfig)
@@ -234,7 +254,8 @@ def _build(cls, data: dict):
 _SECTIONS = {
     "camera": CameraConfig, "orb": OrbConfig, "dynamic": DynamicConfig,
     "matcher": MatcherConfig, "optimizer": OptimizerConfig,
-    "tracking": TrackingConfig, "loop": LoopConfig, "map": MapConfig,
+    "tracking": TrackingConfig, "mapping": MappingConfig,
+    "loop": LoopConfig, "map": MapConfig,
     "ransac": RansacConfig, "detector": DetectorConfig,
 }
 

@@ -85,14 +85,17 @@ def find_fundamental_ransac(p1, p2, valid, *, idx=None,
                             threshold: float = 1.0) -> FundamentalResult:
     """RANSAC F over correspondences p1 <-> p2 ([N, 2] each).
 
-    Hypotheses use the sample indices ``idx`` [H, 8] when given, else ones
-    drawn from ``generator``. The best hypothesis is refit on its inliers
+    Hypotheses use the sample indices ``idx`` [H, 8] when given (or
+    ``idx(valid)`` when it is a callable), else ones drawn from
+    ``generator``. The best hypothesis is refit on its inliers
     with the SVD null space, projected to rank 2 and de-normalized.
     """
     p1n, T1 = _normalize_points(p1, valid)
     p2n, T2 = _normalize_points(p2, valid)
     if idx is None:
         idx = sample_indices(valid, n_hypotheses, generator)
+    elif callable(idx):
+        idx = idx(valid)
 
     F_h = _eight_point(p1n[idx], p2n[idx])                    # [H, 3, 3]
     d = epipolar_distance(F_h, p1n[None], p2n[None])          # [H, N]

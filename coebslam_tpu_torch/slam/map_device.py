@@ -8,6 +8,8 @@ time and afterwards writes only the dirty rows, in place with
 donates the buffers to its scatter program; both serve the TPU compiler
 and are not needed here.) Point descriptors are mirrored as +-1 float32
 for the Hamming product, keyframe descriptors stay packed uint8.
+``adopt_keyframe_row`` writes a new keyframe's feature row straight from
+the frame already on the device, so the host copy is not uploaded again.
 """
 from __future__ import annotations
 
@@ -28,11 +30,14 @@ class DeviceMap:
                  max_dist);
     ``kf_feats`` (uv, desc_u8, level, ur, kp_valid) per keyframe slot;
     ``kf_poses`` (R [K, 3, 3], t [K, 3]), uploaded whole when they change.
+    ``mirror_keyframes=False`` keeps no keyframe feature rows.
     """
 
-    def __init__(self, cfg: SystemConfig, device=None):
+    def __init__(self, cfg: SystemConfig, device=None,
+                 mirror_keyframes: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device, "DeviceMap")
+        self.mirror_keyframes = mirror_keyframes
         self._arena = None
         self._pts = None
         self._kf = None
@@ -40,7 +45,12 @@ class DeviceMap:
         self._kf_pose_version = -1
 
     def _up(self, a) -> torch.Tensor:
-        return torch.tensor(np.ascontiguousarray(a), device=self.device)
+        """Host rows -> device; on the card through pinned memory, without
+        waiting for the queued device work."""
+        t = torch.from_numpy(np.array(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     def _point_rows(self, m, idx=slice(None)):
         return (self._up(m.pt_pos[idx]),
@@ -56,7 +66,8 @@ class DeviceMap:
 
     def _full_upload(self, m) -> None:
         self._pts = self._point_rows(m)
-        self._kf = self._kf_rows(m)
+        if self.mirror_keyframes:
+            self._kf = self._kf_rows(m)
         self._arena = m
         m._dirty_pt[:] = False
         m._dirty_kf[:] = False
@@ -73,8 +84,10 @@ class DeviceMap:
         if self._arena is not m or m._dirty_all or self._pts is None:
             self._full_upload(m)
             return self
-        for dirty, mirror, rows in ((m._dirty_pt, self._pts, self._point_rows),
-                                    (m._dirty_kf, self._kf, self._kf_rows)):
+        mirrors = [(m._dirty_pt, self._pts, self._point_rows)]
+        if self.mirror_keyframes:
+            mirrors.append((m._dirty_kf, self._kf, self._kf_rows))
+        for dirty, mirror, rows in mirrors:
             ids = np.nonzero(dirty)[0]
             if len(ids):
                 idx = self._up(ids)
@@ -83,6 +96,17 @@ class DeviceMap:
                 dirty[:] = False
         self._sync_poses(m)
         return self
+
+    def adopt_keyframe_row(self, m, k: int, fd) -> None:
+        """Write keyframe k's feature row from the device FrameData ``fd``
+        it was made from, and clear the row's dirty flag."""
+        if self._kf is None or self._arena is not m:
+            return
+        f = fd.feats
+        for dst, src in zip(self._kf, (f.uv, f.desc, f.level, fd.ur,
+                                       f.valid)):
+            dst[k] = src.to(dst.dtype)
+        m._dirty_kf[k] = False
 
     @property
     def points(self) -> Tuple:

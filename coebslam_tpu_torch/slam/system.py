@@ -1,0 +1,248 @@
+"""The ``System`` facade of the host-orchestrated path (RGB-D).
+
+Counterpart of ``coebslam_tpu/slam/system.py``: construction wires the
+``Tracker`` and the ``LocalMapper`` around one ``MapArena``;
+``track_rgbd`` takes a frame with optional detector boxes; localization
+mode, reset, the realtime (pipelined) mode and the trajectory exports
+follow the reference's surface. The dynamic front-end is the fused
+``"feature"`` motion check: given boxes win, otherwise the detector's
+``detect_device`` runs every ``detector_cadence`` frames; while the system
+is not initialised every box is treated as dynamic (a host mask, the
+reference's conservative initialisation).
+
+The system runs on ``device`` (default CUDA; no CPU fallback). Not ported
+yet, and raising ``NotImplementedError``: the BoW half (``vocabulary=``:
+keyframe database, relocalization, loop closing), the ``"flow"`` motion
+check, and the host stereo and monocular entries.
+"""
+from __future__ import annotations
+
+import time
+from types import SimpleNamespace
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import SystemConfig
+from ..io import trajectory
+from ..utils.device import resolve_device
+from ..utils.metrics import MetricsCollector
+from .local_mapping import LocalMapper
+from .map import MapArena
+from .tracking import (HOST_SENSORS_TODO, LOST, NOT_INITIALIZED, Sampler,
+                       Tracker)
+
+BOW_TODO = ("the host path's BoW half (keyframe database, relocalization, "
+            "loop closing) is not ported yet (ROADMAP.md queue 1)")
+FLOW_TODO = ("the 'flow' motion check (ops/lk_flow.py) is not ported yet "
+             "(ROADMAP.md queue 1)")
+
+
+def _np_box_mask(h: int, w: int, boxes: np.ndarray) -> np.ndarray:
+    """Host union of box masks (absent boxes have xmin < 0)."""
+    mask = np.zeros((h, w), bool)
+    for b in boxes:
+        if b[0] >= 0:
+            x0, y0 = max(0, int(b[0])), max(0, int(b[1]))
+            x1, y1 = min(w - 1, int(b[2])), min(h - 1, int(b[3]))
+            mask[y0:y1 + 1, x0:x1 + 1] = True
+    return mask
+
+
+class System:
+    def __init__(self, cfg: SystemConfig, detector=None, vocabulary=None,
+                 device=None, sampler: Optional[Sampler] = None):
+        """Args:
+          cfg: the configuration.
+          detector: optional detector with ``detect_device(gray)`` (the
+            port's ``models.detector.YoloDetector``), run when no boxes are
+            passed.
+          vocabulary: must be None (the BoW half is not ported yet).
+          device: where it runs (default CUDA).
+          sampler: injects the dynamic step's F-RANSAC draws
+            (``Tracker.sampler``).
+        """
+        if vocabulary is not None:
+            raise NotImplementedError(BOW_TODO)
+        if cfg.use_dynamic_filtering and cfg.dynamic.motion_check != "feature":
+            raise NotImplementedError(FLOW_TODO)
+        self.cfg = cfg
+        self.device = resolve_device(device, "System")
+        self.detector = detector
+        self.map = MapArena(cfg)
+        self.tracker = Tracker(cfg, self.map, self.device, sampler=sampler)
+        self.mapper = LocalMapper(cfg, self.map, self.device)
+        self.tracker.on_keyframe = self._on_keyframe
+        self.localization_only = False
+        self._boxes_dev: Optional[torch.Tensor] = None
+        self._frame_count = 0
+        self.metrics = MetricsCollector()
+
+    # ------------------------------------------------------------------ #
+
+    def _on_keyframe(self, kf_id: int) -> None:
+        if self.localization_only:
+            return
+        self.mapper.process_keyframe(kf_id)
+
+    def track_rgbd(self, rgb_or_gray, depth, stamp: float,
+                   boxes: Optional[Sequence] = None):
+        """One RGB-D frame.
+
+        Args:
+          rgb_or_gray: [H, W] grey or [H, W, 3] colour, 0..255.
+          depth: [H, W] float metres (or raw integer units).
+          boxes: optional [B, 4] (xmin, ymin, xmax, ymax) detector boxes.
+        Returns (state, n_inliers).
+        """
+        gray = self._to_gray(rgb_or_gray)
+        mask = None
+        boxes_dev = None
+        if self.cfg.use_dynamic_filtering:
+            boxes_dev = self._device_boxes(gray, boxes)
+            if boxes_dev is not None \
+                    and self.tracker.state.mode == NOT_INITIALIZED:
+                # Conservative initialisation: every box is dynamic until
+                # there is motion evidence (host mask, initialisation only).
+                b = boxes_dev.cpu().numpy()
+                h, w = gray.shape
+                mask = _np_box_mask(int(h), int(w), b)
+                boxes_dev = None
+        t0 = time.perf_counter()
+        state, n = self.tracker.process_frame(
+            gray, depth, stamp, dynamic_mask=mask, boxes_dev=boxes_dev)
+        self.metrics.record(
+            frame=self._frame_count, stamp=stamp, state=state, n_inliers=n,
+            n_map_points=len(self.map.valid_points()),
+            n_keyframes=len(self.map.valid_keyframes()),
+            budget=self.tracker.state.budget,
+            wall_ms=(time.perf_counter() - t0) * 1e3)
+        self._frame_count += 1
+        self._maybe_reset(state)
+        return state, n
+
+    def track_monocular(self, rgb_or_gray, stamp: float, boxes=None):
+        raise NotImplementedError(HOST_SENSORS_TODO)
+
+    def track_stereo(self, left, right, stamp: float):
+        raise NotImplementedError(HOST_SENSORS_TODO)
+
+    # ------------------------------------------------------------------ #
+
+    @property
+    def last_dynamic(self):
+        """The newest frame's dynamic-step result (box classes, counts and
+        the sticky mask), read from the device when asked for."""
+        tr = self.tracker
+        if tr.last_dyn_info is None or tr._dyn_state is None:
+            return None
+        info = tr.last_dyn_info
+        return SimpleNamespace(
+            box_dynamic=info.box_dynamic.cpu().numpy(),
+            box_blurred=info.box_blurred.cpu().numpy(),
+            n_outliers=int(info.n_outliers),
+            n_culled=int(info.n_culled),
+            mask=tr._dyn_state.sticky.cpu().numpy() > 0)
+
+    def _device_boxes(self, gray, boxes) -> Optional[torch.Tensor]:
+        """Detector boxes as a [max_boxes, 4] device tensor: given boxes
+        win; otherwise the detector runs every ``detector_cadence`` frames
+        and its boxes are reused in between."""
+        if boxes is not None:
+            return self.tracker._up(self._pad_boxes(boxes))
+        if self.detector is None:
+            return None
+        cad = max(1, self.cfg.dynamic.detector_cadence)
+        if self._frame_count % cad == 0 or self._boxes_dev is None:
+            self._boxes_dev = self.detector.detect_device(gray)
+        return self._boxes_dev
+
+    def activate_localization_mode(self) -> None:
+        """Track against the frozen map: no keyframes, no new points."""
+        self.localization_only = True
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self) -> None:
+        self.localization_only = False
+        self.tracker.localization_only = False
+
+    def reset(self) -> None:
+        """Clear the map and start initialisation again."""
+        self.tracker.flush()
+        self.tracker.freeze_trajectory()
+        self.map = MapArena(self.cfg)
+        self.tracker.map = self.map
+        self.mapper.map = self.map
+        self.tracker.state.__init__(budget=self.cfg.orb.n_features)
+        self.tracker.reset_runtime()
+        self.tracker.ref_kf = -1
+
+    def _maybe_reset(self, state: str) -> None:
+        """Reset when lost with a small map (fewer than
+        ``reset_if_lost_with_kfs_below`` keyframes)."""
+        if state == LOST and len(self.map.valid_keyframes()) \
+                < self.cfg.tracking.reset_if_lost_with_kfs_below:
+            n_traj = len(self.tracker.trajectory)
+            self.reset()
+            del self.tracker.trajectory[n_traj:]
+
+    def enable_realtime(self, finalize_batch: int = 8) -> None:
+        """Pipeline the tracker (frame i-1's decisions after frame i's
+        dispatch, ``finalize_batch`` frames per transfer) and run the
+        mapper's stage machine one stage per frame."""
+        self.tracker.pipelined = True
+        self.tracker.finalize_batch = max(1, int(finalize_batch))
+        self.mapper.async_mode = True
+        self.tracker.on_frame = self.mapper.poll
+        self.tracker.mapper_idle_fn = self.mapper.idle
+
+    def shutdown(self) -> None:
+        """Finalize in-flight frames and finish the mapping stages."""
+        self.tracker.flush()
+        self.mapper.flush()
+
+    # ------------------------------------------------------------------ #
+
+    def get_tracking_state(self) -> str:
+        return self.tracker.state.mode
+
+    def get_tracked_map_points(self) -> np.ndarray:
+        pids = self.tracker._last_pids
+        if pids is None:
+            return np.zeros(0, np.int32)
+        return pids[pids >= 0]
+
+    def save_trajectory_tum(self, path: str) -> None:
+        """Every frame's pose, composed against the current keyframe poses
+        at save time."""
+        traj = self.tracker.export_trajectory()
+        trajectory.save_tum(path, [s for s, _, _ in traj],
+                            [(R, t) for _, R, t in traj])
+
+    def save_keyframe_trajectory_tum(self, path: str) -> None:
+        kfs = self.map.valid_keyframes()
+        trajectory.save_tum(path, self.map.kf_stamp[kfs],
+                            [(self.map.kf_R[k], self.map.kf_t[k])
+                             for k in kfs])
+
+    def save_trajectory_kitti(self, path: str) -> None:
+        trajectory.save_kitti(
+            path, [(R, t) for _, R, t in self.tracker.export_trajectory()])
+
+    # ------------------------------------------------------------------ #
+
+    def _to_gray(self, img) -> torch.Tensor:
+        img = self.tracker._up(img).to(torch.float32)
+        if img.dim() == 3:
+            return 0.299 * img[..., 0] + 0.587 * img[..., 1] \
+                + 0.114 * img[..., 2]
+        return img
+
+    def _pad_boxes(self, boxes) -> np.ndarray:
+        if isinstance(boxes, torch.Tensor):
+            boxes = boxes.cpu().numpy()
+        b = np.asarray(boxes, np.float32).reshape(-1, 4)
+        out = np.full((self.cfg.dynamic.max_boxes, 4), -1.0, np.float32)
+        out[:min(len(b), len(out))] = b[:len(out)]
+        return out

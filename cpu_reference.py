@@ -6,6 +6,7 @@ Run from the repository root:
     python3 cpu_reference.py jax refine {orbit,circuit}
     python3 cpu_reference.py port {circuit,kidnap,selfdetect,stereo,mono}
     python3 cpu_reference.py port refine circuit
+    python3 cpu_reference.py {jax,port} host-replica
 
 Drives one package on the CPU over one scene at the configuration of the
 matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
@@ -27,6 +28,12 @@ matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
   the first tracked frame, frames lost after it, the Sim3-aligned ATE over
   the tracked frames, keyframes, and each initialisation attempt (whether
   it succeeded, H or F, the points triangulated).
+- ``host-replica`` ([13]): the host-orchestrated ``System(SystemConfig())``
+  (synchronous, no vocabulary, no detector) over the first N_HOST frames of
+  the 400-frame TUM replica with the walker's boxes (the JAX package
+  writes and reads back its PNG files as tests/test_tum_replica.py does;
+  the port renders them in memory): frames OK and lost, ATE, keyframes,
+  live points, local BAs and the keyframes and points culled.
 - ``refine orbit|circuit`` ([10]): the session of [4] or [6], then the
   handoff (``to_arena``), global BA and ``refined_trajectory``: the
   arena's keyframes and points, the observations cut (``truncated_obs``),
@@ -44,12 +51,13 @@ import time
 
 import numpy as np
 
-from chip_smoke import (CIRCUIT_LIMITS, DETECT_EVERY, MONO_RADIUS, N_MONO,
-                        N_SELFDETECT, N_STEREO, STEREO_BLUR, STEREO_WALKER,
-                        circuit_config, mean_best_iou, mono_config,
-                        mono_scene, mono_summary, refine_report,
-                        stereo_blurred, stereo_config, stereo_scene,
-                        walker_detector)
+from chip_smoke import (CIRCUIT_LIMITS, DETECT_EVERY, HOST_SCHEDULE,
+                        MONO_RADIUS, N_HOST, N_MONO, N_SELFDETECT, N_STEREO,
+                        STEREO_BLUR, STEREO_WALKER, circuit_config,
+                        host_summary, mean_best_iou, mono_config, mono_scene,
+                        mono_summary, refine_report, replica_host_frames,
+                        run_host, stereo_blurred, stereo_config,
+                        stereo_scene, walker_detector)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VOCAB = os.path.join(ROOT, "artifacts", "vocab_1e5.npz")
@@ -119,6 +127,71 @@ def _sensor_summary(res, gt, ate, mono):
     return out
 
 
+def _count_mapper(sysm):
+    """Count the local BAs and the keyframes and points the mapper culls
+    (the same wrappers for both packages)."""
+    n = {"local_ba": 0, "culled_kf": 0, "culled_pt": 0}
+    mp = sysm.mapper
+    ba, cull_pts, cull_kfs = mp._ba_dispatch, mp.cull_map_points, \
+        mp.cull_keyframes
+
+    def ba_(kf):
+        n["local_ba"] += 1
+        return ba(kf)
+
+    def cull_pts_(kf):
+        before = len(mp.map.valid_points())
+        cull_pts(kf)
+        n["culled_pt"] += before - len(mp.map.valid_points())
+
+    def cull_kfs_(kf):
+        before = len(mp.map.valid_keyframes())
+        cull_kfs(kf)
+        n["culled_kf"] += before - len(mp.map.valid_keyframes())
+
+    mp._ba_dispatch, mp.cull_map_points = ba_, cull_pts_
+    mp.cull_keyframes = cull_kfs_
+    return n
+
+
+def run_host_replica(pkg):
+    """[13] on either package."""
+    if pkg == "jax":
+        import tempfile
+        from coebslam_tpu.config import SystemConfig
+        from coebslam_tpu.eval import ate
+        from coebslam_tpu.io import tum
+        from coebslam_tpu.slam.system import System
+        from coebslam_tpu.utils import replica
+        root = tempfile.mkdtemp(prefix="replica400_")
+        replica.generate(root, **HOST_SCHEDULE)
+        seq = tum.load_tum_sequence(root)
+        bstamps, bboxes = replica.load_boxes(os.path.join(root, "boxes.txt"))
+        frames = []
+        for i in range(N_HOST):
+            stamp, gray, depth = seq.load_frame(i, depth_factor=5000.0)
+            j = int(np.argmin(np.abs(bstamps - stamp)))
+            b = bboxes[j] if abs(bstamps[j] - stamp) < 0.03 else None
+            frames.append((stamp, gray, depth, b))
+        gt_stamps, gt = seq.gt_stamps[:N_HOST], seq.gt_poses[:N_HOST, :3]
+        sysm = System(SystemConfig())
+    else:
+        from coebslam_tpu_torch.config import SystemConfig
+        from coebslam_tpu_torch.eval import ate
+        from coebslam_tpu_torch.slam.system import System
+        from coebslam_tpu_torch.utils import replica
+        frames, gt = replica_host_frames(replica, N_HOST, "cpu")
+        gt_stamps = [f[0] for f in frames]
+        sysm = System(SystemConfig(), device="cpu")
+    counts = _count_mapper(sysm)
+    t0 = time.time()
+    states = run_host(sysm, frames)
+    out = host_summary(sysm, states, gt_stamps, gt, ate)
+    out.update(counts, track_s=time.time() - t0,
+               stage_ms=dict(sysm.mapper.stage_ms))
+    return out
+
+
 def run_jax_sensor(scene):
     """[11] or [12] on the JAX package: the scene of tests/test_stereo_wide.py
     or tests/test_realtime_mono.py at full width."""
@@ -183,6 +256,8 @@ def run_jax(scene, refine):
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
+    if scene == "host-replica":
+        return run_host_replica("jax")
     if scene in ("stereo", "mono"):
         return run_jax_sensor(scene)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -270,6 +345,8 @@ def run_port(scene, refine):
     from coebslam_tpu_torch.slam.global_ba import GlobalBA
     from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
     from coebslam_tpu_torch.utils import replica, synthetic
+    if scene == "host-replica":
+        return run_host_replica("port")
     if scene == "stereo":
         cfg = stereo_config(config)
         frames, gt = stereo_scene(torch, synthetic, replica, cfg.camera,
@@ -335,7 +412,8 @@ def main():
         sys.exit(__doc__)
     pkg, scene = args
     scenes = ("orbit", "circuit") if refine else (
-        "orbit", "circuit", "kidnap", "selfdetect", "stereo", "mono")
+        "orbit", "circuit", "kidnap", "selfdetect", "stereo", "mono",
+        "host-replica")
     if pkg not in ("jax", "port") or scene not in scenes \
             or (pkg, scene) == ("port", "orbit"):
         sys.exit(__doc__)

@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels against
 their plain PyTorch versions, and the maintenance program, the detector,
-the global BA, the stereo frame and the two-view initializer against
-their CPU runs, on the card. Without a card
+the global BA, the stereo frame, the two-view initializer and the host
+System against their CPU runs, on the card. Without a card
 they skip.
 
 They import neither JAX nor the JAX package, so they also run on a machine
@@ -416,3 +416,42 @@ def test_reconstruct_graph_on_card_matches_cpu(card, planar):
     ref = ti.reconstruct_graph(uv1, uv2, inb, cam, idx_h, idx_f)
     assert bool(full.ok) and bool(full.used_homography) == planar
     assert torch.allclose(full.R.cpu(), ref.R, atol=1e-2)
+
+
+def test_host_system_on_card_matches_cpu(card):
+    """The host System (Tracker + LocalMapper) over the first 8 frames of
+    the replica, with the walker's boxes, on the card and on the CPU with
+    the same F-RANSAC draws: states and inlier counts equal, poses within
+    1e-3, keyframe counts equal, one FAST launch per frame on the card."""
+    from coebslam_tpu_torch.slam.system import System
+    from coebslam_tpu_torch.utils import replica
+    frames = list(replica.generate(n_frames=400, seed=0, frames=range(8),
+                                   device=card))
+
+    def sampler(seed, valid):
+        g = torch.Generator().manual_seed(seed)
+        return fast_draws(valid.cpu(), g)
+
+    runs = {}
+    for dev in ("cpu", card):
+        sysm = System(SystemConfig(), device=dev, sampler=sampler)
+        fast_cuda.LAUNCHES = 0
+        out = [sysm.track_rgbd(f.gray, f.depth / replica.DEPTH_FACTOR,
+                               f.stamp,
+                               boxes=f.boxes if len(f.boxes) else None)
+               for f in frames]
+        runs[str(dev)] = (out, sysm, fast_cuda.LAUNCHES)
+    (oc, sc, _), (og, sg, launches) = runs["cpu"], runs[str(card)]
+    assert og == oc and launches == len(frames)
+    assert sg.map.n_kf == sc.map.n_kf >= 2
+    for (_, R1, t1), (_, R2, t2) in zip(sc.tracker.trajectory,
+                                        sg.tracker.trajectory):
+        np.testing.assert_allclose(R2, R1, atol=1e-3)
+        np.testing.assert_allclose(t2, t1, atol=1e-3)
+
+
+def fast_draws(valid, generator, n=256, k=8):
+    """The same F-RANSAC sample indices on both devices (drawn on the
+    CPU)."""
+    from coebslam_tpu_torch.ops import fundamental
+    return fundamental.sample_indices(valid, n, generator, k=k)

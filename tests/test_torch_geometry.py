@@ -146,7 +146,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "coebslam_tpu_torch").rglob("*.py"))
     assert ROOT / "coebslam_tpu_torch" / "models" / "yolov5.py" in files
     for new in ("ops/initializer_ops.py", "ops/triangulation.py",
-                "utils/replica.py"):
+                "utils/replica.py", "slam/system.py", "slam/local_mapping.py",
+                "slam/tracking.py", "slam/map.py", "slam/map_device.py",
+                "io/trajectory.py", "utils/metrics.py"):
         assert ROOT / "coebslam_tpu_torch" / new in files
     files.append(ROOT / "chip_smoke.py")
     pat = re.compile(r"^\s*(import|from)\s+(jax\b|coebslam_tpu\b(?!_torch))",

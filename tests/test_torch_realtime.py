@@ -21,6 +21,8 @@ from coebslam_tpu.utils import synthetic as jsyn
 from coebslam_tpu_torch import config as tcfg
 from coebslam_tpu_torch.eval import ate as tate
 from coebslam_tpu_torch.slam import maintenance as tmaint, realtime as trt
+from coebslam_tpu_torch.slam import system as tsys, tracking as ttrack
+from coebslam_tpu_torch.utils import replica as trep
 from coebslam_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(1)
@@ -182,9 +184,13 @@ def test_renderer_matches():
     lambda: tsyn.dynamic_orbit(tcfg.CameraConfig(), 1),
     lambda: tmaint.Maintainer(tcfg.SystemConfig(), trt.RTLimits(), None),
     lambda: tsyn.six_wall_room(),
+    lambda: tsys.System(tcfg.SystemConfig()),
+    lambda: ttrack.Tracker(tcfg.SystemConfig()),
+    lambda: next(trep.generate(n_frames=4)),
 ], ids=["RealtimeSlam", "RealtimeSlam_stereo", "RealtimeSlam_mono",
         "make_room", "make_walker", "dynamic_orbit",
-        "Maintainer", "six_wall_room"])
+        "Maintainer", "six_wall_room", "System", "Tracker",
+        "replica_generate"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """With no device given, an entry point runs on CUDA, and raises where
     CUDA is absent: there is no CPU fallback."""
