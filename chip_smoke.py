@@ -52,11 +52,11 @@ Phases (each one failing the run with a non-zero exit when it fails):
      the circuit, then 6-15 again, maintenance every 2 frames. At least one
      relocalization, the last 4 frames tracked, ATE of the last 5 < 5 cm.
   8. The orbit, self-detect (bench.py run_realtime_selfdetect, cut to
-     the first 60 of its 150 frames for the script's time): no
+     the first 30 of its 150 frames for the script's time): no
      ground-truth boxes; RealtimeSlam(detector=, detect_every=3) with the
      walker detector (artifacts/detector_walker.npz, width 0.25, 320x320
      input, one class, conf 0.4, boxes dilated 25 %). Every frame tracked,
-     ATE < 5 cm, one FAST launch per frame and 20 detections; prints host
+     ATE < 5 cm, one FAST launch per frame and 10 detections; prints host
      syncs per frame, fps and the mean best IoU of the detector's boxes
      with the walker's on every 10th frame.
   9. The detector alone, at full width (DetectorConfig(): yolov5s, 80
@@ -98,7 +98,32 @@ Phases (each one failing the run with a non-zero exit when it fails):
      local BAs, culled keyframes and points, host syncs per frame, fps with
      the card drained at the end, the mapper's stage ms and peak device
      memory (profile_host.py runs this phase alone, and in realtime mode).
-Each of [4] and [6]-[13] prints the JAX package's result on the CPU for the
+ 14. The host path's BoW half, System(vocabulary=) with the scene's own
+     vocabulary (slam/vocabulary.train on descriptors extracted on the
+     card), synchronous:
+     a. tests/test_loop_e2e.py on [6]'s 110 circuit frames (its
+        configuration, 1024 keypoints on 4 levels: at full width the JAX
+        package itself misses the test's ATE gate, cpu_reference.py jax
+        host-loop-full). A loop closed, first on frame >= 76; the ATE
+        before the first closure > 2 cm and the exported trajectory's
+        below 0.8 x it; at least one fused edge; one FAST launch per
+        frame. Prints the loop's keyframe pair, the closing frame's stall
+        by stage (host ms of compute_sim3, correct, its pose graph and
+        global BA) with the host syncs of each, fps, syncs per frame and
+        peak device memory.
+     b. tests/test_vocabulary.py::TestRelocalizationE2E (the room, a
+        30-frame orbit, 12 frames, 3 black ones, then frame 8 again; its
+        1024 / 4 cut, as the JAX package at full width makes too few
+        keyframes and resets, cpu_reference.py jax host-reloc-full): OK,
+        LOST, OK, the camera centre within 10 cm, one FAST launch per
+        frame. Then the System's Relocalizer on the return frame, as it
+        is (Horn branch) and without its depth (EPnP branch): both must
+        relocalize within 10 cm; prints the candidates tried, inliers, ms
+        and syncs. Then one ransac_epnp at the relocalizer's shapes (300 hypotheses of 6, 2048
+        correspondences, 30 % outliers, the same indices) on the card
+        against the port's CPU result: inlier sets equal, pose within
+        EPNP_CARD_TOL (1e-3); its device ms and syncs.
+Each of [4] and [6]-[14] prints the JAX package's result on the CPU for the
 same scene and configuration beside its own, and the peak device memory.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
@@ -113,6 +138,20 @@ import time
 import warnings
 
 import numpy as np
+
+from host_bow_scenes import (HOST_LOOP_VOCAB_FRAMES, HOST_LOOP_VOCAB,
+                             HOST_LOOP_FIRST_MIN, HOST_LOOP_GAIN,
+                             HOST_RELOC_ORBIT, HOST_RELOC_TRACK,
+                             HOST_RELOC_BLACK, HOST_RELOC_RETURN,
+                             HOST_RELOC_VOCAB_FRAMES, HOST_RELOC_VOCAB,
+                             HOST_RELOC_LIMIT_M, EPNP_SHAPE, EPNP_CARD_TOL,
+                             sync_sites, host_loop_config, host_reloc_config,
+                             scene_vocabulary, run_host_loop,
+                             host_loop_summary, host_loop_failures,
+                             run_host_reloc, depth_free_frames, reloc_direct,
+                             host_reloc_failures, watch_calls, closure_stages,
+                             pnp_scene, RELOC_ATTEMPTS, reloc_calls,
+                             reloc_truth)
 
 N_FRAMES = 150
 ATE_LIMIT_M = 0.025
@@ -129,9 +168,9 @@ JAX_CPU_KIDNAP_TAIL_M = 0.001680
 JAX_CPU_KIDNAP = "1 relocalization, the last 4 frames tracked"
 # [8]: the first N_SELFDETECT frames of the orbit, self-detect
 # (cpu_reference.py jax selfdetect).
-N_SELFDETECT = 60
-JAX_CPU_SELFDETECT = dict(ok=60, ate_m=0.006101, n_kf=10, detections=20,
-                          box_iou=0.640871)
+N_SELFDETECT = 30
+JAX_CPU_SELFDETECT = dict(ok=30, ate_m=0.007293, n_kf=8, detections=10,
+                          box_iou=0.572848)
 SELFDETECT_ATE_LIMIT_M = 0.05
 # [10]: handoff and global BA of [4]'s and [6]'s sessions
 # (cpu_reference.py jax refine orbit|circuit).
@@ -193,7 +232,16 @@ HOST_MAX_LOST = 5
 HOST_ATE_LIMIT_M = 0.08
 JAX_CPU_HOST = dict(ok=60, lost=0, ate_m=0.002227, n_kf=9, live_points=811,
                     local_ba=11, culled_kf=4, culled_pt=825)
-
+# The JAX package on the CPU, same scenes and configurations
+# (cpu_reference.py jax host-loop|host-reloc).
+JAX_CPU_HOST_LOOP = dict(ok=110, loops=1, closed_at=94, loop_edge=(36, 5),
+                         fused_edges=30, ate_pre_m=0.064488,
+                         ate_post_m=0.044864, n_kf=41)
+JAX_CPU_HOST_RELOC = dict(
+    n_kf_before=6, states="OK, LOST, OK", centre_err_m=0.002892,
+    return_inliers=387, reloc_calls="3 (the black frames; no candidate)",
+    direct_horn=dict(inliers=336, centre_err_m=0.002374),
+    direct_epnp=dict(inliers=336, centre_err_m=0.002208))
 # Canvases for the FAST kernel's edges (its tiles are 64 x 32 px): name,
 # H, W, the true extent of each level, and the values in it: "uniform" in
 # [0, 255), "integer" (multiples of 16 in [0, 48], for NMS ties) or
@@ -274,10 +322,7 @@ def count_host_syncs(torch):
             yield sites
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            key = f"{os.path.basename(w.filename)}:{w.lineno}"
-            sites[key] = sites.get(key, 0) + 1
+    sites.update(sync_sites(caught))
 
 
 @contextlib.contextmanager
@@ -666,6 +711,174 @@ def peak_mib(torch):
     return mib
 
 
+def _vocabulary_of(extractor, vocabulary, cfg, frames, which, kw):
+    """A scene's own vocabulary from its frames on the card."""
+    descs = []
+    for i in which:
+        f = extractor.extract(frames[i][0], cfg.orb)
+        descs.append(f.desc[f.valid].cpu().numpy())
+    return scene_vocabulary(vocabulary, descs, **kw)
+
+
+def host_loop_phase(torch, fast_cuda, extractor, vocabulary, System,
+                    GlobalBA, ate, config, synthetic, frames, gt, card_line):
+    """[14a]: System(vocabulary=) over the loop circuit's frames on the
+    card. Returns (FAST launches, frames)."""
+    cfg = host_loop_config(config)
+    t0 = time.perf_counter()
+    voc = _vocabulary_of(extractor, vocabulary, cfg, frames,
+                         HOST_LOOP_VOCAB_FRAMES, HOST_LOOP_VOCAB)
+    print(f"[14a] scene vocabulary ({voc.n_words} words) trained in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sysm = System(cfg, vocabulary=voc)
+    lc = sysm.loop_closer
+    lc._global_ba = GlobalBA(cfg)
+    rec = watch_calls([], lc, ("compute_sim3", "correct", "run_pose_graph"))
+    watch_calls(rec, lc._global_ba, ("run",))
+    fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
+    torch.cuda.synchronize()
+    with count_host_syncs(torch) as sites:
+        t0 = time.perf_counter()
+        states, pre, closed_at = run_host_loop(sysm, frames)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches, mem = fast_cuda.LAUNCHES, peak_mib(torch)
+    s = host_loop_summary(sysm, states, pre, closed_at, gt, ate)
+    closures = closure_stages(rec)
+    n, syncs = s["n"], sum(sites.values())
+    j = JAX_CPU_HOST_LOOP
+    print(f"[14a] host loop closing (JAX package on CPU in brackets): frames "
+          f"OK {s['ok']}/{n} ({j['ok']}), keyframes {s['n_kf']} "
+          f"({j['n_kf']}), loops {s['loops']} ({j['loops']}) first closed "
+          f"on frame {s['closed_at']} ({j['closed_at']}; gate >= "
+          f"{HOST_LOOP_FIRST_MIN}), loop edges {s['loop_edges']} "
+          f"({list(j['loop_edge'])}), fused edges {s['fused_edges']} "
+          f"({j['fused_edges']}), ATE before the closure "
+          f"{s['ate_pre_m'] * 100 if s['ate_pre_m'] else float('nan'):.3f} "
+          f"cm ({j['ate_pre_m'] * 100:.3f}), exported "
+          f"{s['ate_post_m'] * 100:.3f} cm ({j['ate_post_m'] * 100:.3f}; "
+          f"gate < {HOST_LOOP_GAIN} x before)", flush=True)
+    for c in closures:
+        print(f"[14a] closure stall (host ms): compute_sim3 "
+              f"{c['compute_sim3_ms']:.1f}, correct "
+              f"{c.get('correct_own_ms', 0):.1f} + pose graph "
+              f"{c.get('pose_graph_ms', 0):.1f} + global BA "
+              f"{c.get('global_ba_ms', 0):.1f}; host syncs compute_sim3 "
+              f"{c['compute_sim3_syncs']}, correct {c.get('correct_syncs', 0)}"
+              f" (pose graph {c.get('pose_graph_syncs', 0)}, global BA "
+              f"{c.get('global_ba_syncs', 0)}); correct's sync sites "
+              f"{c.get('sites', {})}", flush=True)
+    print(f"[14a] FAST launches {launches} for {n} frames; host syncs {syncs}"
+          f" = {syncs / n:.2f} per frame {sites}; {n} frames in {secs:.1f} s "
+          f"({n / secs:.2f} fps, the card drained at the end); peak device "
+          f"memory {mem:.1f} MiB; on {card_line}", flush=True)
+    bad = host_loop_failures(s)
+    if launches != n:
+        bad.append(f"{launches} FAST launches for {n} frames")
+    if bad:
+        _fail(f"host loop closing: {bad}")
+    return launches, n
+
+
+def host_reloc_phase(torch, fast_cuda, extractor, vocabulary, frame_mod,
+                     fundamental, pnp, System, config, synthetic, dev,
+                     card_line):
+    """[14b]: System(vocabulary=) over the blackout scene on the card, the
+    System's Relocalizer on the return frame (both branches), and one
+    RANSAC EPnP at the relocalizer's shapes against the CPU. Returns
+    (FAST launches, frames)."""
+    cfg = host_reloc_config(config)
+    planes = synthetic.make_room(seed=0, device=dev)
+    poses = synthetic.camera_trajectory(**HOST_RELOC_ORBIT)
+    frames = [synthetic.render(cfg.camera, p, planes)[:2] for p in poses]
+    voc = _vocabulary_of(extractor, vocabulary, cfg, frames,
+                         HOST_RELOC_VOCAB_FRAMES, HOST_RELOC_VOCAB)
+    sysm = System(cfg, vocabulary=voc)
+    rec = watch_calls([], sysm.relocalizer,
+                      RELOC_ATTEMPTS["port"] + ("relocalize",))
+    black = (torch.zeros_like(frames[0][0]), torch.ones_like(frames[0][1]))
+    np_pose = lambda p: (p.R.numpy(), p.t.numpy())
+    Rg, tg = reloc_truth(*np_pose(poses[0]),
+                         *np_pose(poses[HOST_RELOC_RETURN]))
+    fast_cuda.LAUNCHES = 0
+    torch.cuda.synchronize()
+    with count_host_syncs(torch) as sites:
+        s = run_host_reloc(sysm, frames, black, Rg, tg)
+        torch.cuda.synchronize()
+    launches = fast_cuda.LAUNCHES
+    n = HOST_RELOC_TRACK + HOST_RELOC_BLACK + 1
+    s["reloc"] = reloc_calls(rec)
+    fd, flat, words = depth_free_frames(torch, frame_mod, sysm, cfg,
+                                        *frames[HOST_RELOC_RETURN])
+    for branch, f in (("horn", fd), ("epnp", flat)):
+        del rec[:]
+        torch.cuda.synchronize()
+        with count_host_syncs(torch):
+            s[f"direct_{branch}"] = reloc_direct(sysm, f, words, Rg, tg)
+        s[f"direct_{branch}"].update(reloc_calls(rec)[0])
+    j = JAX_CPU_HOST_RELOC
+    calls = [(c["candidates_tried"], c["branch"], c["ok"])
+             for c in s["reloc"]]
+    print(f"[14b] host relocalization (JAX package on CPU in brackets): "
+          f"before the blackout {s['before']} with {s['n_kf_before']} "
+          f"keyframes ({j['n_kf_before']}), after it {s['after_black']}, "
+          f"on the return {s['return']} with {s['n_inliers']} inliers "
+          f"({j['states']}, {j['return_inliers']}), camera centre off by "
+          f"{s['centre_err_m'] * 100:.3f} cm ({j['centre_err_m'] * 100:.3f};"
+          f" limit {HOST_RELOC_LIMIT_M * 100:.0f} cm), the return frame "
+          f"{s['return_ms']:.1f} ms; relocalize calls (candidates tried, "
+          f"branch, ok) {calls} ({j['reloc_calls']}); FAST launches "
+          f"{launches} for {n} frames; host syncs {sum(sites.values())} "
+          f"{sites}", flush=True)
+    for branch in ("horn", "epnp"):
+        d, jd = s[f"direct_{branch}"], j[f"direct_{branch}"]
+        print(f"[14b] the Relocalizer on the return frame, {branch} branch "
+              f"({d['branch']}): ok {d['ok']}, {d['candidates_tried']} "
+              f"candidates tried, {d['n_inliers']} inliers "
+              f"({jd['inliers']}), centre off by "
+              f"{(d['centre_err_m'] or float('nan')) * 100:.3f} cm "
+              f"({jd['centre_err_m'] * 100:.3f}), {d['ms']:.1f} ms, host "
+              f"syncs {d['syncs']} {d['sites']}", flush=True)
+    bad = host_reloc_failures(s, cfg.tracking.reset_if_lost_with_kfs_below)
+    if launches != n:
+        bad.append(f"{launches} FAST launches for {n} frames")
+    if bad:
+        _fail(f"host relocalization: {bad}")
+
+    # One RANSAC EPnP at the relocalizer's shapes, card against CPU.
+    H, k, N = (EPNP_SHAPE[x] for x in ("n_hypotheses", "sample", "n"))
+    X, uv, _, _ = pnp_scene(cfg.camera, 11, N, noise_px=0.3,
+                            outlier_frac=0.3)
+    valid = torch.ones(N, dtype=torch.bool)
+    idx = fundamental.sample_indices(valid, H, torch.Generator()
+                                     .manual_seed(0), k=k)
+    args = [torch.from_numpy(a) for a in (X, uv)] + [valid]
+    cpu = pnp.ransac_epnp(*args, cfg.camera, idx)
+    dargs = [a.to(dev) for a in args]
+    didx = idx.to(dev)
+    run = lambda: pnp.ransac_epnp(*dargs, cfg.camera, didx)
+    card_res = run()
+    torch.cuda.synchronize()
+    with count_host_syncs(torch) as ep_sites:
+        run()
+    ep_ms = _device_ms(torch, run, 10)
+    dR = float((card_res.R.cpu() - cpu.R).abs().max())
+    dt = float((card_res.t.cpu() - cpu.t).abs().max())
+    same = bool(torch.equal(card_res.inliers.cpu(), cpu.inliers))
+    print(f"[14b] ransac_epnp ({H} hypotheses of {k}, {N} correspondences, "
+          f"30 % outliers, the same indices): card vs CPU R {dR:.3g}, t "
+          f"{dt:.3g} (tolerance {EPNP_CARD_TOL:g}), inliers "
+          f"{int(card_res.n_inliers)} / {int(cpu.n_inliers)}, sets equal "
+          f"{same}; {ep_ms:.3f} ms between CUDA events (median of 10, queued "
+          f"behind a device-side sleep; its host syncs let the host's "
+          f"dispatch show after each), host syncs per call "
+          f"{sum(ep_sites.values())} {ep_sites}; on {card_line}", flush=True)
+    if not same or max(dR, dt) > EPNP_CARD_TOL or not np.isfinite(ep_ms):
+        _fail(f"ransac_epnp card vs CPU: R {dR}, t {dt}, inliers {same}")
+    return launches, n
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -678,6 +891,8 @@ def main():
     from coebslam_tpu_torch.models import detector as detector_mod, yolov5
     from coebslam_tpu_torch.ops import extractor, fast, fast_cuda, \
         initializer_ops
+    from coebslam_tpu_torch.ops import fundamental, pnp
+    from coebslam_tpu_torch.slam import frame as frame_mod
     from coebslam_tpu_torch.slam import handoff, vocabulary
     from coebslam_tpu_torch.slam.global_ba import GlobalBA
     from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
@@ -884,6 +1099,7 @@ def main():
               f"{circ_disp['dispatches']} dispatches for {n} frames")
     print(f"[6] peak device memory {peak_mib(torch):.1f} MiB", flush=True)
     sessions["circuit"] = (ccfg, res, gt)
+    circ_frames, gt_circ = frames, gt    # [14a] drives the host path on them
 
     # ---- 7. kidnap relocalization (tests/test_realtime_loop.py)
     sched = list(range(0, 50)) + list(range(6, 16))
@@ -1188,6 +1404,14 @@ def main():
     if h_launches != hs["n"]:
         _fail(f"host System: {h_launches} FAST launches for {hs['n']} "
               f"frames")
+    # ---- 14a. host loop closing: System(vocabulary=) over [6]'s circuit
+    hl_launches, hl_n = host_loop_phase(
+        torch, fast_cuda, extractor, vocabulary, System, GlobalBA, ate,
+        config, synthetic, circ_frames, gt_circ, card_line)
+    # ---- 14b. host relocalization after a blackout
+    hr_launches, hr_n = host_reloc_phase(
+        torch, fast_cuda, extractor, vocabulary, frame_mod, fundamental, pnp,
+        System, config, synthetic, dev, card_line)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
@@ -1205,7 +1429,9 @@ def main():
                              "kidnap": kid_launches,
                              "selfdetect": sd_launches,
                              "stereo": st_launches, "mono": mo_launches,
-                             "host_replica": h_launches},
+                             "host_replica": h_launches,
+                             "host_loop": hl_launches,
+                             "host_reloc": hr_launches},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ given explicitly (``idx``) — a torch generator cannot reproduce
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -63,6 +63,21 @@ def epipolar_distance(F, p1, p2):
     num = torch.abs(torch.sum(line[..., :2] * p2, dim=-1) + line[..., 2])
     den = torch.linalg.norm(line[..., :2], dim=-1)
     return num / torch.clamp(den, min=1e-9)
+
+
+#: ``sampler(valid, n_hypotheses, k) -> [n_hypotheses, k]`` RANSAC sample
+#: indices among the valid rows, in place of a generator's draws (tests
+#: inject the reference's ``jax.random`` draws through it).
+RansacSampler = Callable[[torch.Tensor, int, int], torch.Tensor]
+
+
+def draw(sampler: Optional[RansacSampler], generator: torch.Generator,
+         valid, n_hypotheses: int, k: int):
+    """[H, k] sample indices from ``sampler`` when given, else from
+    ``generator`` (``sample_indices``)."""
+    if sampler is not None:
+        return sampler(valid, n_hypotheses, k).to(valid.device)
+    return sample_indices(valid, n_hypotheses, generator, k=k)
 
 
 def sample_indices(valid, n_hypotheses: int, generator: torch.Generator,

@@ -10,10 +10,15 @@ follow the reference's surface. The dynamic front-end is the fused
 is not initialised every box is treated as dynamic (a host mask, the
 reference's conservative initialisation).
 
+With a ``vocabulary`` the BoW half is wired in as in the reference: the
+keyframe database (culled keyframes leave it), relocalization as the
+tracker's ``reloc_fn`` and loop closing after each keyframe's local
+mapping. The vocabulary goes to the device once; each keyframe's and each
+relocalizing frame's words are computed there and read once.
+
 The system runs on ``device`` (default CUDA; no CPU fallback). Not ported
-yet, and raising ``NotImplementedError``: the BoW half (``vocabulary=``:
-keyframe database, relocalization, loop closing), the ``"flow"`` motion
-check, and the host stereo and monocular entries.
+yet, and raising ``NotImplementedError``: the ``"flow"`` motion check and
+the host stereo and monocular entries.
 """
 from __future__ import annotations
 
@@ -26,15 +31,18 @@ import torch
 
 from ..config import SystemConfig
 from ..io import trajectory
+from ..ops.fundamental import RansacSampler
 from ..utils.device import resolve_device
 from ..utils.metrics import MetricsCollector
+from . import vocabulary as voc_mod
+from .keyframe_db import KeyFrameDatabase
 from .local_mapping import LocalMapper
+from .loop_closing import LoopCloser
 from .map import MapArena
+from .relocalization import Relocalizer
 from .tracking import (HOST_SENSORS_TODO, LOST, NOT_INITIALIZED, Sampler,
                        Tracker)
 
-BOW_TODO = ("the host path's BoW half (keyframe database, relocalization, "
-            "loop closing) is not ported yet (ROADMAP.md queue 1)")
 FLOW_TODO = ("the 'flow' motion check (ops/lk_flow.py) is not ported yet "
              "(ROADMAP.md queue 1)")
 
@@ -51,20 +59,25 @@ def _np_box_mask(h: int, w: int, boxes: np.ndarray) -> np.ndarray:
 
 
 class System:
-    def __init__(self, cfg: SystemConfig, detector=None, vocabulary=None,
-                 device=None, sampler: Optional[Sampler] = None):
+    def __init__(self, cfg: SystemConfig, detector=None,
+                 vocabulary: Optional[voc_mod.Vocabulary] = None,
+                 device=None, sampler: Optional[Sampler] = None,
+                 reloc_sampler: Optional[RansacSampler] = None,
+                 loop_sampler: Optional[RansacSampler] = None):
         """Args:
           cfg: the configuration.
           detector: optional detector with ``detect_device(gray)`` (the
             port's ``models.detector.YoloDetector``), run when no boxes are
             passed.
-          vocabulary: must be None (the BoW half is not ported yet).
+          vocabulary: optional ``slam.vocabulary.Vocabulary``: enables the
+            keyframe database, relocalization and loop closing.
           device: where it runs (default CUDA).
           sampler: injects the dynamic step's F-RANSAC draws
             (``Tracker.sampler``).
+          reloc_sampler, loop_sampler: inject the relocalizer's and the
+            loop closer's RANSAC draws (``Relocalizer.sampler``,
+            ``LoopCloser.sampler``).
         """
-        if vocabulary is not None:
-            raise NotImplementedError(BOW_TODO)
         if cfg.use_dynamic_filtering and cfg.dynamic.motion_check != "feature":
             raise NotImplementedError(FLOW_TODO)
         self.cfg = cfg
@@ -75,16 +88,49 @@ class System:
         self.mapper = LocalMapper(cfg, self.map, self.device)
         self.tracker.on_keyframe = self._on_keyframe
         self.localization_only = False
+        self.voc = vocabulary
+        self.kf_db = None
+        self.relocalizer = None
+        self.loop_closer = None
+        if vocabulary is not None:
+            self._dev_voc = voc_mod.to_device(vocabulary, self.device)
+            self.kf_db = KeyFrameDatabase(vocabulary, self.map,
+                                          cfg.map.max_keyframes)
+            # Culled keyframes leave the database, or they stay loop and
+            # relocalization candidates and crowd out real ones.
+            self.map.on_keyframe_removed.append(self.kf_db.erase)
+            self.relocalizer = Relocalizer(cfg, self.map, self.kf_db,
+                                           self.device, sampler=reloc_sampler)
+            self.loop_closer = LoopCloser(cfg, self.map, self.kf_db,
+                                          mapper=self.mapper,
+                                          device=self.device,
+                                          sampler=loop_sampler)
+            self.tracker.reloc_fn = self._relocalize
         self._boxes_dev: Optional[torch.Tensor] = None
         self._frame_count = 0
         self.metrics = MetricsCollector()
 
     # ------------------------------------------------------------------ #
 
+    def _words(self, desc_u8, valid) -> np.ndarray:
+        """Word ids [N] of device descriptors, read once."""
+        return voc_mod.transform_words(self._dev_voc, desc_u8,
+                                       valid)[0].cpu().numpy()
+
+    def _relocalize(self, fd):
+        return self.relocalizer.relocalize(
+            fd, self._words(fd.feats.desc, fd.feats.valid))
+
     def _on_keyframe(self, kf_id: int) -> None:
         if self.localization_only:
             return
+        if self.kf_db is not None:
+            up = self.tracker._up
+            self.kf_db.add(kf_id, self._words(up(self.map.kf_desc[kf_id]),
+                                              up(self.map.kf_kp_valid[kf_id])))
         self.mapper.process_keyframe(kf_id)
+        if self.loop_closer is not None:
+            self.loop_closer.insert_keyframe(kf_id)
 
     def track_rgbd(self, rgb_or_gray, depth, stamp: float,
                    boxes: Optional[Sequence] = None):
@@ -168,7 +214,10 @@ class System:
         self.tracker.localization_only = False
 
     def reset(self) -> None:
-        """Clear the map and start initialisation again."""
+        """Clear the map and start initialisation again. As in the
+        reference, only the tracker and the mapper get the new arena: the
+        keyframe database, the relocalizer and the loop closer keep the
+        old one (and the database its registered keyframes)."""
         self.tracker.flush()
         self.tracker.freeze_trajectory()
         self.map = MapArena(self.cfg)

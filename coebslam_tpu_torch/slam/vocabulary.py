@@ -1,13 +1,14 @@
 """Binary BoW vocabulary: hierarchical k-means tree over ORB descriptors.
 
-Counterpart of the load/transform half of ``coebslam_tpu/slam/
-vocabulary.py`` (DBoW2's ``TemplatedVocabulary<FORB>``): a branching-k,
-depth-L tree of binary centroids with tf-idf weights and L1 scoring.
-Descriptors descend the tree level by level as a gather + Hamming argmin
-over the node's children. A ``Vocabulary`` holds numpy arrays, field for
-field as in the JAX package, so one loaded there carries over as
-``Vocabulary(*jax_voc)``. Training and the ORBvoc text format are not
-ported.
+Counterpart of ``coebslam_tpu/slam/vocabulary.py`` (DBoW2's
+``TemplatedVocabulary<FORB>``): a branching-k, depth-L tree of binary
+centroids with tf-idf weights and L1 scoring. Descriptors descend the tree
+level by level as a gather + Hamming argmin over the node's children. A
+``Vocabulary`` holds numpy arrays, field for field as in the JAX package,
+so one loaded there carries over as ``Vocabulary(*jax_voc)``. Training
+(host, numpy: binary k-means with majority-vote centroids) gives the same
+arrays as the JAX package's for the same seed. The ORBvoc text format is
+not ported.
 """
 from __future__ import annotations
 
@@ -50,6 +51,76 @@ class DeviceVocabulary(NamedTuple):
 
 def _unpack(desc_u8: np.ndarray) -> np.ndarray:
     return np.unpackbits(desc_u8, axis=1, bitorder="little")
+
+
+def _majority_center(bits: np.ndarray) -> np.ndarray:
+    """[M, 256] bits -> [32] uint8 majority-vote centroid."""
+    maj = (bits.mean(0) >= 0.5).astype(np.uint8)
+    return np.packbits(maj, bitorder="little")
+
+
+def train(descriptors: np.ndarray, branching: int = 10, depth: int = 6,
+          seed: int = 0, max_iters: int = 8) -> Vocabulary:
+    """Train the tree on [N, 32] uint8 descriptors (k-majority clustering,
+    random distinct initial centres from ``numpy.random.RandomState(seed)``;
+    idf weights from the training descriptors' word counts)."""
+    rng = np.random.RandomState(seed)
+    bits_all = _unpack(descriptors)
+
+    node_desc = [np.zeros(32, np.uint8)]
+    children: list = [[]]
+    node_level = [0]
+
+    def cluster(idx: np.ndarray, level: int, parent: int):
+        bits = bits_all[idx]
+        if level == depth or len(idx) <= branching:
+            return                       # this node stays a leaf
+        k = min(branching, len(idx))
+        picks = rng.choice(len(idx), k, replace=False)
+        centers = bits[picks].astype(np.float32)
+        assign = None
+        for _ in range(max_iters):
+            d = (bits[:, None, :] != (centers[None] >= 0.5)).sum(-1)
+            new_assign = d.argmin(1)
+            if assign is not None and (new_assign == assign).all():
+                break
+            assign = new_assign
+            for c in range(k):
+                sel = assign == c
+                if sel.any():
+                    centers[c] = bits[sel].mean(0)
+        for c in range(k):
+            sel = assign == c
+            if not sel.any():
+                continue
+            node_id = len(node_desc)
+            node_desc.append(_majority_center(bits[sel]))
+            children.append([])
+            node_level.append(level + 1)
+            children[parent].append(node_id)
+            cluster(idx[sel], level + 1, node_id)
+
+    cluster(np.arange(len(descriptors)), 0, 0)
+
+    n_nodes = len(node_desc)
+    child_arr = np.full((n_nodes, branching), -1, np.int32)
+    for i, ch in enumerate(children):
+        child_arr[i, :len(ch)] = ch
+    word_id = np.full(n_nodes, -1, np.int32)
+    leaves = [i for i in range(n_nodes) if not children[i] and i != 0]
+    for w, i in enumerate(leaves):
+        word_id[i] = w
+
+    # idf = log(N / (count + 1)) with each training descriptor as its own
+    # document, floored at 1e-3.
+    voc = Vocabulary(np.asarray(node_desc), child_arr, word_id,
+                     np.ones(len(leaves), np.float32),
+                     np.asarray(node_level, np.int32), depth, branching)
+    words, _ = transform_host(voc, descriptors)
+    counts = np.bincount(words[words >= 0], minlength=len(leaves)) + 1
+    idf = np.log(len(descriptors) / counts).astype(np.float32)
+    idf = np.maximum(idf, 1e-3)
+    return voc._replace(word_weight=idf)
 
 
 def to_device(voc: Vocabulary, device) -> DeviceVocabulary:
@@ -148,8 +219,17 @@ def l1_score(bow_a, bow_b):
     return 1.0 - 0.5 * torch.sum(torch.abs(bow_a - bow_b), dim=-1)
 
 
+def save(path: str, voc: Vocabulary) -> None:
+    """Persist a vocabulary as .npz (the JAX package's layout)."""
+    np.savez_compressed(
+        path, node_desc=voc.node_desc, children=voc.children,
+        word_id=voc.word_id, word_weight=voc.word_weight,
+        node_level=voc.node_level,
+        meta=np.asarray([voc.depth, voc.branching], np.int32))
+
+
 def load(path: str) -> Vocabulary:
-    """A vocabulary saved as .npz by the JAX package's ``save``."""
+    """A vocabulary saved as .npz by ``save`` (either package's)."""
     z = np.load(path)
     return Vocabulary(z["node_desc"], z["children"], z["word_id"],
                       z["word_weight"], z["node_level"],

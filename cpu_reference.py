@@ -7,6 +7,8 @@ Run from the repository root:
     python3 cpu_reference.py port {circuit,kidnap,selfdetect,stereo,mono}
     python3 cpu_reference.py port refine circuit
     python3 cpu_reference.py {jax,port} host-replica
+    python3 cpu_reference.py {jax,port} {host-loop,host-reloc}
+    python3 cpu_reference.py {jax,port} {host-loop-full,host-reloc-full}
 
 Drives one package on the CPU over one scene at the configuration of the
 matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
@@ -19,8 +21,9 @@ matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
   at the last dispatch.
 - ``selfdetect`` ([8]): the first N_SELFDETECT frames of the dynamic
   orbit with no ground-truth boxes, ``RealtimeSlam(detector=,
-  detect_every=3)`` on ``artifacts/detector_walker.npz``: ATE, frames tracked, keyframes,
-  detections dispatched and the mean best box IoU on every 10th frame.
+  detect_every=3)`` on ``artifacts/detector_walker.npz``: ATE, frames
+  tracked, keyframes, detections dispatched and the mean best box IoU on
+  every 10th frame.
 - ``stereo`` ([11]): the wide-baseline dynamic stereo scene at full width
   (``track_stereo``, the walker's ground-truth boxes): ATE, frames
   tracked, keyframes and live points.
@@ -34,6 +37,23 @@ matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
   writes and reads back its PNG files as tests/test_tum_replica.py does;
   the port renders them in memory): frames OK and lost, ATE, keyframes,
   live points, local BAs and the keyframes and points culled.
+- ``host-loop`` ([14a]): ``System(vocabulary=)`` (synchronous) over
+  tests/test_loop_e2e.py's circuit at the test's ORB cut (1024
+  keypoints, 4 levels; ``host_bow_scenes.HOST_LOOP_ORB``) with the scene's own
+  vocabulary: loops closed, the first closing frame, the loop and fused
+  edges, the ATE before the first closure and of the exported
+  trajectory, the gates that failed, and each accepted closure's host ms
+  and host syncs by stage (compute_sim3, correct, its pose graph and
+  global BA; syncs are counted on the card only).
+- ``host-reloc`` ([14b]): ``System(vocabulary=)`` over the blackout scene
+  of tests/test_vocabulary.py::TestRelocalizationE2E at the test's ORB
+  cut (``host_bow_scenes.HOST_RELOC_ORB``): the
+  states before and after the blackout and on the return, the camera
+  centre's error, and each relocalization call (its branch, the
+  candidates tried, the inliers, host ms).
+- ``host-loop-full``, ``host-reloc-full``: the same two at OrbConfig()'s
+  full width (2048 keypoints, 8 levels). These runs are why [14] keeps the
+  tests' cut: at full width the JAX package misses a gate of each.
 - ``refine orbit|circuit`` ([10]): the session of [4] or [6], then the
   handoff (``to_arena``), global BA and ``refined_trajectory``: the
   arena's keyframes and points, the observations cut (``truncated_obs``),
@@ -56,8 +76,17 @@ from chip_smoke import (CIRCUIT_LIMITS, DETECT_EVERY, HOST_SCHEDULE,
                         STEREO_BLUR, STEREO_WALKER, circuit_config,
                         host_summary, mean_best_iou, mono_config, mono_scene,
                         mono_summary, refine_report, replica_host_frames,
-                        run_host, stereo_blurred, stereo_config,
-                        stereo_scene, walker_detector)
+                        run_host, stereo_blurred, stereo_config, stereo_scene,
+                        walker_detector)
+from host_bow_scenes import (HOST_LOOP_VOCAB, HOST_LOOP_VOCAB_FRAMES,
+                             HOST_RELOC_ORBIT, HOST_RELOC_RETURN,
+                             HOST_RELOC_VOCAB, HOST_RELOC_VOCAB_FRAMES,
+                             RELOC_ATTEMPTS, closure_stages, host_loop_config,
+                             host_loop_failures, host_loop_summary,
+                             host_reloc_config, host_reloc_failures,
+                             reloc_calls, reloc_direct, reloc_truth,
+                             depth_free_frames, run_host_loop, run_host_reloc,
+                             scene_vocabulary, watch_calls)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VOCAB = os.path.join(ROOT, "artifacts", "vocab_1e5.npz")
@@ -192,6 +221,128 @@ def run_host_replica(pkg):
     return out
 
 
+def run_host_bow(pkg, scene):
+    """[14a] (``host-loop``) or [14b] (``host-reloc``) on either package,
+    at the tests' ORB cut or, with a ``-full`` suffix, at full width."""
+    loop = scene.startswith("host-loop")
+    full = scene.endswith("-full")
+    if pkg == "jax":
+        import jax
+        import jax.numpy as jnp
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from coebslam_tpu import config
+        from coebslam_tpu.eval import ate
+        from coebslam_tpu.ops import extractor
+        from coebslam_tpu.slam import frame as frame_mod
+        from coebslam_tpu.slam import vocabulary as voc_mod
+        from coebslam_tpu.slam.global_ba import GlobalBA
+        from coebslam_tpu.slam.system import System
+        from coebslam_tpu.utils import synthetic
+        from test_loop_e2e import (DEPTH_BIAS, N_CIRCUIT, N_OVERLAP,
+                                   circuit_poses, six_wall_room)
+        cfg = (host_loop_config if loop else host_reloc_config)(config, full)
+        if loop:
+            planes, poses = six_wall_room(), circuit_poses(N_CIRCUIT
+                                                           + N_OVERLAP)
+        else:
+            planes = synthetic.make_room(seed=0)
+            poses = synthetic.camera_trajectory(**HOST_RELOC_ORBIT)
+        render = jax.jit(lambda p: synthetic.render(cfg.camera, p,
+                                                    planes)[:2])
+        ex = jax.jit(lambda g: extractor.extract(g, cfg.orb))
+
+        def descs_of(g):
+            f = ex(g)
+            return np.asarray(f.desc)[np.asarray(f.valid)]
+
+        frames = [render(p) for p in poses]
+        if loop:
+            frames = [(g, np.asarray(d) * DEPTH_BIAS) for g, d in frames]
+        black = (jnp.zeros_like(frames[0][0]), jnp.ones_like(frames[0][1]))
+        gba = GlobalBA(cfg)
+        make = lambda voc: System(cfg, vocabulary=voc)
+        np_pose = lambda p: (np.asarray(p.R), np.asarray(p.t))
+
+        def direct_frames(sysm, g, d):
+            fd = frame_mod.process_rgbd(jnp.asarray(g), jnp.asarray(d),
+                                        cfg.camera, cfg.orb)
+            words = np.asarray(voc_mod.transform_words(
+                sysm.voc, fd.feats.desc, fd.feats.valid)[0])
+            flat = fd._replace(depth=jnp.zeros_like(fd.depth),
+                               ur=jnp.full_like(fd.ur, -1.0),
+                               obs=fd.obs.at[:, 2].set(-1.0))
+            return fd, flat, words
+    else:
+        import torch
+        from coebslam_tpu_torch import config
+        from coebslam_tpu_torch.eval import ate
+        from coebslam_tpu_torch.ops import extractor
+        from coebslam_tpu_torch.slam import frame as frame_mod
+        from coebslam_tpu_torch.slam import vocabulary as voc_mod
+        from coebslam_tpu_torch.slam.global_ba import GlobalBA
+        from coebslam_tpu_torch.slam.system import System
+        from coebslam_tpu_torch.utils import synthetic
+        cfg = (host_loop_config if loop else host_reloc_config)(config, full)
+        if loop:
+            planes = synthetic.six_wall_room(device="cpu")
+            poses = synthetic.circuit_poses(synthetic.N_CIRCUIT
+                                            + synthetic.N_OVERLAP)
+        else:
+            planes = synthetic.make_room(seed=0, device="cpu")
+            poses = synthetic.camera_trajectory(**HOST_RELOC_ORBIT)
+        frames = [synthetic.render(cfg.camera, p, planes)[:2] for p in poses]
+        if loop:
+            frames = [(g, d * synthetic.DEPTH_BIAS) for g, d in frames]
+
+        def descs_of(g):
+            f = extractor.extract(g, cfg.orb)
+            return f.desc[f.valid].numpy()
+
+        black = (torch.zeros_like(frames[0][0]),
+                 torch.ones_like(frames[0][1]))
+        gba = GlobalBA(cfg, device="cpu")
+        make = lambda voc: System(cfg, device="cpu", vocabulary=voc)
+        np_pose = lambda p: (p.R.numpy(), p.t.numpy())
+
+        def direct_frames(sysm, g, d):
+            return depth_free_frames(torch, frame_mod, sysm, cfg, g, d)
+    t0 = time.time()
+    vframes, vkw = ((HOST_LOOP_VOCAB_FRAMES, HOST_LOOP_VOCAB) if loop
+                    else (HOST_RELOC_VOCAB_FRAMES, HOST_RELOC_VOCAB))
+    voc = scene_vocabulary(voc_mod, [descs_of(frames[i][0])
+                                     for i in vframes], **vkw)
+    out = {"voc_words": int(voc.n_words), "voc_s": time.time() - t0}
+    sysm = make(voc)
+    rec = []
+    t0 = time.time()
+    if loop:
+        sysm.loop_closer._global_ba = gba
+        watch_calls(rec, sysm.loop_closer,
+                    ("compute_sim3", "correct", "run_pose_graph"))
+        watch_calls(rec, gba, ("run",))
+        states, pre, closed_at = run_host_loop(sysm, frames)
+        gt = np.asarray([-R.T @ t for R, t in map(np_pose, poses)])
+        out.update(host_loop_summary(sysm, states, pre, closed_at, gt, ate))
+        out.update(closures=closure_stages(rec),
+                   failed=host_loop_failures(out))
+    else:
+        watch_calls(rec, sysm.relocalizer, RELOC_ATTEMPTS[pkg]
+                    + ("relocalize",))
+        Rg, tg = reloc_truth(*np_pose(poses[0]),
+                             *np_pose(poses[HOST_RELOC_RETURN]))
+        out.update(run_host_reloc(sysm, frames, black, Rg, tg))
+        out["reloc"] = reloc_calls(rec)
+        fd, flat, words = direct_frames(sysm, *frames[HOST_RELOC_RETURN])
+        for branch, f in (("horn", fd), ("epnp", flat)):
+            del rec[:]
+            out[f"direct_{branch}"] = reloc_direct(sysm, f, words, Rg, tg)
+            out[f"direct_{branch}"].update(reloc_calls(rec)[0])
+        out.update(failed=host_reloc_failures(
+            out, cfg.tracking.reset_if_lost_with_kfs_below))
+    out["track_s"] = time.time() - t0
+    return out
+
+
 def run_jax_sensor(scene):
     """[11] or [12] on the JAX package: the scene of tests/test_stereo_wide.py
     or tests/test_realtime_mono.py at full width."""
@@ -258,6 +409,8 @@ def run_jax(scene, refine):
     import jax.numpy as jnp
     if scene == "host-replica":
         return run_host_replica("jax")
+    if scene.startswith(("host-loop", "host-reloc")):
+        return run_host_bow("jax", scene)
     if scene in ("stereo", "mono"):
         return run_jax_sensor(scene)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -347,6 +500,8 @@ def run_port(scene, refine):
     from coebslam_tpu_torch.utils import replica, synthetic
     if scene == "host-replica":
         return run_host_replica("port")
+    if scene.startswith(("host-loop", "host-reloc")):
+        return run_host_bow("port", scene)
     if scene == "stereo":
         cfg = stereo_config(config)
         frames, gt = stereo_scene(torch, synthetic, replica, cfg.camera,
@@ -413,7 +568,8 @@ def main():
     pkg, scene = args
     scenes = ("orbit", "circuit") if refine else (
         "orbit", "circuit", "kidnap", "selfdetect", "stereo", "mono",
-        "host-replica")
+        "host-replica", "host-loop", "host-reloc", "host-loop-full",
+        "host-reloc-full")
     if pkg not in ("jax", "port") or scene not in scenes \
             or (pkg, scene) == ("port", "orbit"):
         sys.exit(__doc__)

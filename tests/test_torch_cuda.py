@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels against
 their plain PyTorch versions, and the maintenance program, the detector,
-the global BA, the stereo frame, the two-view initializer and the host
-System against their CPU runs, on the card. Without a card
+the global BA, the stereo frame, the two-view initializer, the host
+System, RANSAC EPnP and the Sim3 refinement against their CPU runs, on
+the card. Without a card
 they skip.
 
 They import neither JAX nor the JAX package, so they also run on a machine
@@ -455,3 +456,57 @@ def fast_draws(valid, generator, n=256, k=8):
     CPU)."""
     from coebslam_tpu_torch.ops import fundamental
     return fundamental.sample_indices(valid, n, generator, k=k)
+
+
+def test_epnp_and_sim3_on_card_match_cpu(card):
+    """``ransac_epnp`` at the relocalizer's shapes (300 hypotheses of 6
+    points, 2048 correspondences, 30 % outliers) with the same sample
+    indices, and ``optimize_sim3`` on one two-view scene, on the card and
+    on the CPU: inlier sets equal; EPnP's pose within ``EPNP_CARD_TOL``
+    (cuSOLVER's float32 eigh against LAPACK's, measured 1.06e-4 in t; the
+    pose, not the null-space basis), the Sim3 within 1e-4."""
+    from host_bow_scenes import EPNP_CARD_TOL, pnp_scene
+    from coebslam_tpu_torch.geometry import camera as cam_ops, sim3, so3
+    from coebslam_tpu_torch.ops import fundamental, pnp
+    from coebslam_tpu_torch.optim import sim3_opt
+    cfg = SystemConfig()
+    X, uv, R, t = pnp_scene(cfg.camera, 11, 2048, noise_px=0.3,
+                            outlier_frac=0.3)
+    valid = torch.ones(len(X), dtype=torch.bool)
+    idx = fundamental.sample_indices(valid, 300, torch.Generator()
+                                     .manual_seed(0), k=6)
+    out = {}
+    for dev in ("cpu", card):
+        to = lambda a: torch.from_numpy(np.array(a)).to(dev)
+        out[str(dev)] = pnp.ransac_epnp(to(X), to(uv), valid.to(dev),
+                                        cfg.camera, idx.to(dev))
+    c, g = out["cpu"], out[str(card)]
+    assert torch.equal(g.inliers.cpu(), c.inliers)
+    assert int(c.n_inliers) > 0.6 * len(X)
+    np.testing.assert_allclose(g.R.cpu().numpy(), c.R.numpy(),
+                               atol=EPNP_CARD_TOL)
+    np.testing.assert_allclose(g.t.cpu().numpy(), c.t.numpy(),
+                               atol=EPNP_CARD_TOL)
+
+    rng = np.random.RandomState(2)
+    X2 = rng.uniform([-2, -1.5, 2], [2, 1.5, 6], (300, 3)).astype(np.float32)
+    S_gt = sim3.Sim3.from_se3(so3.exp(torch.tensor([0.05, 0.2, -0.03])),
+                              torch.tensor([0.3, -0.1, 0.2]))
+    X1 = S_gt.apply(torch.from_numpy(X2))
+    uv1 = cam_ops.project(cfg.camera, X1) + 0.5 * torch.from_numpy(
+        rng.randn(300, 2).astype(np.float32))
+    uv2 = cam_ops.project(cfg.camera, torch.from_numpy(X2))
+    S0 = sim3.exp(torch.tensor([0.02, -0.03, 0.01, 0.05, 0.05, -0.05,
+                                0.0])).compose(S_gt)
+    res = {}
+    for dev in ("cpu", card):
+        mv = lambda a: a.to(dev)
+        res[str(dev)] = sim3_opt.optimize_sim3(
+            sim3.Sim3(*map(mv, S0)), mv(X1), mv(torch.from_numpy(X2)),
+            mv(uv1), mv(uv2), torch.ones(300, dtype=torch.bool,
+                                         device=dev),
+            cfg.camera, cfg.optimizer)
+    c, g = res["cpu"], res[str(card)]
+    assert torch.equal(g.inliers.cpu(), c.inliers) and int(c.n_inliers) > 250
+    for a, b in zip(g.S12, c.S12):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)

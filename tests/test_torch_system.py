@@ -5,7 +5,8 @@ initialisation on, with the reference's F-RANSAC draws injected through
 ``System(sampler=)`` (a torch generator cannot reproduce ``jax.random``);
 held frame by frame by the rules of ``tests/test_torch_host_tracking.py``.
 Also the trajectory writers, localization mode, the reset after an early
-loss, the entries that are not ported yet, and the device default."""
+loss, the wiring of the BoW half (``vocabulary=``), the entries that are
+not ported yet, and the device default."""
 import dataclasses
 import os
 
@@ -15,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from coebslam_tpu.slam import vocabulary as jvoc
 from coebslam_tpu.slam.system import System as JSystem
 from coebslam_tpu.utils import synthetic as jsyn
 from coebslam_tpu_torch import config as tcfg
@@ -153,15 +155,43 @@ def test_reset_after_early_loss():
     assert len(ts.tracker.trajectory) == len(js.tracker.trajectory) == 3
 
 
+def test_vocabulary_wires_the_bow_half():
+    """``vocabulary=`` makes the keyframe database (its eraser listening
+    to the arena), the relocalizer as the tracker's ``reloc_fn`` and the
+    loop closer with the mapper, all on the System's arena and device, as
+    the JAX System wires them; without it all three are None."""
+    from coebslam_tpu_torch.slam import vocabulary as tvoc
+    cfg = dyn_config(False)
+    tc = tcfg.config_from_dict(dataclasses.asdict(cfg))
+    rng = np.random.RandomState(0)
+    voc = tvoc.train(rng.randint(0, 256, (400, 32)).astype(np.uint8),
+                     branching=4, depth=2)
+    ts = tsys.System(tc, device="cpu", vocabulary=voc)
+    js = JSystem(cfg, vocabulary=jvoc.Vocabulary(*voc))
+    for s in (js, ts):
+        assert s.kf_db.map is s.map and s.kf_db.voc.n_words == voc.n_words
+        assert s.kf_db.erase in s.map.on_keyframe_removed
+        assert s.relocalizer.map is s.map and s.relocalizer.db is s.kf_db
+        assert s.loop_closer.map is s.map and s.loop_closer.db is s.kf_db
+        assert s.loop_closer.mapper is s.mapper
+        assert s.tracker.reloc_fn is not None
+    assert ts.relocalizer.device == ts.loop_closer.device == ts.device
+    frames = _static_frames(cfg, 3)
+    for i, (g, d) in enumerate(frames):
+        assert ts.track_rgbd(g, d, stamp=i / 30.0)[0] == "OK"
+    assert ts.kf_db.registered.sum() == ts.map.n_kf >= 1
+    bare = tsys.System(tc, device="cpu")
+    assert (bare.kf_db, bare.relocalizer, bare.loop_closer) == (None,) * 3
+
+
 @pytest.mark.parametrize("call", [
-    lambda c: tsys.System(c, device="cpu", vocabulary=object()),
     lambda c: tsys.System(c.replace(dynamic=dataclasses.replace(
         c.dynamic, motion_check="flow")), device="cpu"),
     lambda c: tsys.System(c, device="cpu").track_stereo(None, None, 0.0),
     lambda c: tsys.System(c, device="cpu").track_monocular(None, 0.0),
     lambda c: tsys.System(c, device="cpu").tracker.process_frame_stereo(
         None, None, 0.0),
-], ids=["vocabulary", "flow", "stereo", "monocular", "tracker_stereo"])
+], ids=["flow", "stereo", "monocular", "tracker_stereo"])
 def test_entries_not_ported_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call(tcfg.SystemConfig())
