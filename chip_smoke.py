@@ -123,8 +123,37 @@ Phases (each one failing the run with a non-zero exit when it fails):
         correspondences, 30 % outliers, the same indices) on the card
         against the port's CPU result: inlier sets equal, pose within
         EPNP_CARD_TOL (1e-3); its device ms and syncs.
-Each of [4] and [6]-[14] prints the JAX package's result on the CPU for the
+ 15. The host System's other entries at full width (host_sensor_scenes.py;
+     the JAX package passes each test's gates there on the CPU):
+     a. System(SystemConfig(sensor="stereo")).track_stereo over the room's
+        40-frame 0.35 m orbit (tests/test_stereo_checkpoint.py's scene,
+        every frame), the right view from the pose moved by the baseline:
+        frame 0 OK, at most 1 frame not OK, ATE < 5 cm, two FAST launches
+        per frame.
+     b. tests/test_monocular.py::TestMonocularRelocalization at full
+        width: System(vocabulary=).track_monocular over [12]'s frames
+        0-21 (the scene's own vocabulary), 3 black frames, frame 12
+        again. Its gates: first OK <= 10, <= 3 lost after it, > 100 live
+        points, Sim3 ATE < 25 cm; LOST after the blackout, OK on the
+        return within 15 cm of frame 12's own centre; then the System's
+        Relocalizer alone on that frame (no depth: its EPnP branch) within
+        15 cm. Prints the initialisation (frame, H or F) and one attempt's
+        device ms, the relocalize calls, one FAST launch per frame.
+     c. tests/test_dynamic_e2e.py's walker scene (25 frames) through
+        SystemConfig(dynamic=DynamicConfig(motion_check="flow")) (1000
+        Harris corners, 4-level LK): ATE < 2 cm, <= 2 lost, the walker's
+        box dynamic on some frame, one FAST launch per frame; one frame
+        pair's dynamic_frontend on the card against the CPU with the same
+        F-RANSAC samples (mask and box flags equal, points within 1e-2
+        px); one lk_flow and one good_features timed (device ms, kernels
+        per call); BlurGate over 4 frames on the card and the CPU (the
+        same emits).
+     d. [13]'s map checkpointed (io/checkpoint.py), loaded into a new
+        System in localization mode, and [13]'s last frame tracked: OK
+        with > 100 inliers, no keyframe added.
+Each of [4] and [6]-[15] prints the JAX package's result on the CPU for the
 same scene and configuration beside its own, and the peak device memory.
+Each phase prints its seconds.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
 script exits with code 2 and prints no result.
@@ -139,6 +168,18 @@ import warnings
 
 import numpy as np
 
+from host_sensor_scenes import (
+    HOST_FLOW_MAX_LOST, HOST_FLOW_ORBIT, HOST_FLOW_WALKER,
+    HOST_FLOW_ATE_LIMIT_M, HOST_MONO_ATE_LIMIT_M, HOST_MONO_BLACK,
+    HOST_MONO_FIRST_OK_MAX, HOST_MONO_MAX_LOST_AFTER, HOST_MONO_MIN_POINTS,
+    HOST_MONO_RETURN, HOST_MONO_RETURN_LIMIT_M, HOST_MONO_TRACK,
+    HOST_MONO_VOCAB, HOST_MONO_VOCAB_FRAMES, HOST_STEREO_ATE_LIMIT_M,
+    HOST_STEREO_MAX_NOT_OK, HOST_STEREO_ORBIT, N_HOST_FLOW,
+    host_flow_config, host_flow_failures, host_flow_frames,
+    host_flow_summary, host_mono_config, host_mono_failures,
+    host_stereo_config, host_stereo_failures, host_stereo_frames,
+    host_stereo_summary, pose_centres, run_host_flow, run_host_mono,
+    run_host_stereo)
 from host_bow_scenes import (HOST_LOOP_VOCAB_FRAMES, HOST_LOOP_VOCAB,
                              HOST_LOOP_FIRST_MIN, HOST_LOOP_GAIN,
                              HOST_RELOC_ORBIT, HOST_RELOC_TRACK,
@@ -242,6 +283,24 @@ JAX_CPU_HOST_RELOC = dict(
     return_inliers=387, reloc_calls="3 (the black frames; no candidate)",
     direct_horn=dict(inliers=336, centre_err_m=0.002374),
     direct_epnp=dict(inliers=336, centre_err_m=0.002208))
+# [15] (host_sensor_scenes.py): the host System's stereo, monocular and
+# flow entries at full width; the JAX package on the CPU, same scenes and
+# configurations (cpu_reference.py jax host-stereo-full|host-mono-full|
+# host-flow-full).
+JAX_CPU_HOST_STEREO = dict(not_ok=0, ate_m=0.006336, n_kf=9,
+                           live_points=1131)
+JAX_CPU_HOST_MONO = dict(
+    init="frame 1, H, 519 triangulated", first_ok=1, lost_after=0,
+    live_points=852, n_kf=7, ate_sim3_m=0.011527,
+    blackout="LOST, OK with 597 inliers, 0.132 cm",
+    reloc="3 (the black frames; no candidate)",
+    direct_epnp=dict(ok=True, candidates_tried=1, n_inliers=435,
+                     centre_err_m=0.001252))
+JAX_CPU_HOST_FLOW = dict(ok=25, lost=0, ate_m=0.004600, n_kf=13,
+                         walker=[8, 10, 11, 12, 13, 14, 15, 16, 17, 18])
+HOST_FLOW_PAIR = 12              # [15c]'s frame pair held against the CPU
+FLOW_CARD_TOL_PX = 1e-2
+BLUR_GATE_FRAMES = 4
 # Canvases for the FAST kernel's edges (its tiles are 64 x 32 px): name,
 # H, W, the true extent of each level, and the values in it: "uniform" in
 # [0, 255), "integer" (multiples of 16 in [0, 48], for NMS ties) or
@@ -417,14 +476,14 @@ def stereo_blurred(i):
     return STEREO_BLUR[0] <= i < STEREO_BLUR[1]
 
 
-def stereo_scene(torch, synthetic, replica, cam, device):
-    """[11]'s frames on ``device`` with the port's renderer: (left, right,
-    boxes) with the walker's box as a [1, 4] numpy array (None when out of
-    view), the right image rendered from the pose shifted by the baseline,
-    and the ground-truth camera centres."""
+def stereo_scene(torch, synthetic, replica, cam, device, n=N_STEREO):
+    """The first ``n`` of [11]'s frames on ``device`` with the port's
+    renderer: (left, right, boxes) with the walker's box as a [1, 4] numpy
+    array (None when out of view), the right image rendered from the pose
+    shifted by the baseline, and the ground-truth camera centres."""
     planes = synthetic.make_room(seed=0, device=device)
     walker = synthetic.make_walker(**STEREO_WALKER, device=device)
-    poses = replica.walking_trajectory(N_STEREO, seed=3)
+    poses = replica.walking_trajectory(N_STEREO, seed=3)[:n]
     shift = torch.tensor([cam.baseline, 0.0, 0.0], dtype=torch.float32)
     frames = []
     for i, p in enumerate(poses):
@@ -440,10 +499,11 @@ def stereo_scene(torch, synthetic, replica, cam, device):
     return frames, gt
 
 
-def mono_scene(synthetic, cam, device):
-    """[12]'s grey frames on ``device`` and the ground-truth centres."""
+def mono_scene(synthetic, cam, device, n=N_MONO):
+    """The first ``n`` of [12]'s grey frames on ``device`` and the
+    ground-truth centres."""
     planes = synthetic.make_room(seed=0, device=device)
-    poses = synthetic.camera_trajectory(N_MONO, radius=MONO_RADIUS)
+    poses = synthetic.camera_trajectory(N_MONO, radius=MONO_RADIUS)[:n]
     frames = [synthetic.render(cam, p, planes)[0] for p in poses]
     gt = np.asarray([-p.R.numpy().T @ p.t.numpy() for p in poses])
     return frames, gt
@@ -879,6 +939,299 @@ def host_reloc_phase(torch, fast_cuda, extractor, vocabulary, frame_mod,
     return launches, n
 
 
+def host_stereo_phase(torch, fast_cuda, config, synthetic, System, ate,
+                      dev, card_line):
+    """[15a]: System(SystemConfig(sensor="stereo")).track_stereo over the
+    stereo room's 40 frames on the card. Returns (FAST launches, frames)."""
+    cfg = host_stereo_config(config)
+    planes = synthetic.make_room(seed=0, device=dev)
+    poses = synthetic.camera_trajectory(**HOST_STEREO_ORBIT)
+    frames = host_stereo_frames(
+        lambda p: synthetic.render(cfg.camera, p, planes)[0], poses,
+        cfg.camera, torch.from_numpy)
+    sysm = System(cfg)
+    fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
+    torch.cuda.synchronize()
+    with count_host_syncs(torch) as sites:
+        t0 = time.perf_counter()
+        states = run_host_stereo(sysm, frames)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches, mem = fast_cuda.LAUNCHES, peak_mib(torch)
+    s = host_stereo_summary(sysm, states, pose_centres(poses), ate)
+    n, syncs = s["n"], sum(sites.values())
+    j = JAX_CPU_HOST_STEREO
+    print(f"[15a] host stereo (JAX package on CPU in brackets): frame 0 "
+          f"{s['first']}, frames not OK {s['not_ok']} ({j['not_ok']}; gate "
+          f"<= {HOST_STEREO_MAX_NOT_OK}), ATE {s['ate_m'] * 100:.3f} cm "
+          f"({j['ate_m'] * 100:.3f}; limit {HOST_STEREO_ATE_LIMIT_M * 100:.0f}"
+          f" cm), keyframes {s['n_kf']} ({j['n_kf']}), live points "
+          f"{s['live_points']} ({j['live_points']}); FAST launches "
+          f"{launches} for {n} frames; host syncs {syncs} = {syncs / n:.2f} "
+          f"per frame {sites}; {n} frames in {secs:.1f} s ({n / secs:.2f} "
+          f"fps, the card drained at the end); peak device memory "
+          f"{mem:.1f} MiB; on {card_line}", flush=True)
+    bad = host_stereo_failures(s)
+    if launches != 2 * n:
+        bad.append(f"{launches} FAST launches for {n} frames")
+    if bad:
+        _fail(f"host stereo: {bad}")
+    return launches, n
+
+
+def host_mono_phase(torch, fast_cuda, config, extractor, vocabulary,
+                    initializer_ops, frame_mod, System, ate, mono_frames,
+                    mono_gt, card_line):
+    """[15b]: System(vocabulary=).track_monocular over [12]'s first
+    HOST_MONO_TRACK frames, a blackout and a return, on the card; one
+    initialisation attempt timed; the System's Relocalizer on the return
+    frame (EPnP: no depth). Returns (FAST launches, frames)."""
+    cfg = host_mono_config(config)
+    frames = mono_frames[:HOST_MONO_TRACK]
+    t0 = time.perf_counter()
+    voc = _vocabulary_of(extractor, vocabulary, cfg, [(g,) for g in frames],
+                         HOST_MONO_VOCAB_FRAMES, HOST_MONO_VOCAB)
+    print(f"[15b] scene vocabulary ({voc.n_words} words) trained in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sysm = System(cfg, vocabulary=voc)
+    rec = watch_calls([], sysm.relocalizer,
+                      RELOC_ATTEMPTS["port"] + ("relocalize",))
+    calls, fit = [], initializer_ops.reconstruct_graph
+
+    def kept(*a, **kw):
+        calls.append((a, kw))
+        return fit(*a, **kw)
+
+    initializer_ops.reconstruct_graph = kept
+    fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
+    torch.cuda.synchronize()
+    try:
+        with count_host_syncs(torch) as sites:
+            t0 = time.perf_counter()
+            s = run_host_mono(sysm, frames, torch.zeros_like(frames[0]),
+                              mono_gt[:HOST_MONO_TRACK], ate)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        initializer_ops.reconstruct_graph = fit
+    launches, mem = fast_cuda.LAUNCHES, peak_mib(torch)
+    n = HOST_MONO_TRACK + HOST_MONO_BLACK + 1
+    attempts = sysm.tracker.init_attempts
+    done = [k for k, a in enumerate(attempts) if a["ok"]]
+    init_ms = init_syncs = float("nan")
+    if done:
+        a, kw = calls[done[0]]
+        one = lambda: fit(*a, **kw)
+        init_ms = _device_ms(torch, one, 20)
+        torch.cuda.synchronize()
+        with count_host_syncs(torch) as one_sites:
+            one()
+            torch.cuda.synchronize()
+        init_syncs = sum(one_sites.values())
+    reloc = reloc_calls(rec)
+    # The Relocalizer on the return frame, against frame 12's own earlier
+    # pose.
+    del rec[:]
+    g = frames[HOST_MONO_RETURN]
+    fd = frame_mod.process_rgbd(g, torch.zeros_like(g), cfg.camera, cfg.orb)
+    words = sysm._words(fd.feats.desc, fd.feats.valid)
+    _, R12, t12 = sysm.tracker.trajectory[HOST_MONO_RETURN]
+    torch.cuda.synchronize()
+    with count_host_syncs(torch):
+        s["direct_epnp"] = d = reloc_direct(sysm, fd, words, R12, t12)
+    d.update(reloc_calls(rec)[0])
+    j = JAX_CPU_HOST_MONO
+    init = attempts[done[0]] if done else {}
+    print(f"[15b] host mono (JAX package on CPU in brackets): initialised on "
+          f"frame {round(init.get('stamp', -1) * 30)} with "
+          f"{'H' if init.get('homography') else 'F'} ({j['init']}), "
+          f"{len(attempts)} attempts {attempts}; first OK {s['first_ok']} "
+          f"({j['first_ok']}; gate <= {HOST_MONO_FIRST_OK_MAX}), lost after "
+          f"it {s['lost_after']} ({j['lost_after']}; gate <= "
+          f"{HOST_MONO_MAX_LOST_AFTER}), live points {s['live_points']} "
+          f"({j['live_points']}; gate > {HOST_MONO_MIN_POINTS}), keyframes "
+          f"{s['n_kf']} ({j['n_kf']}), Sim3 ATE {s['ate_sim3_m'] * 100:.3f} "
+          f"cm ({j['ate_sim3_m'] * 100:.3f}; limit "
+          f"{HOST_MONO_ATE_LIMIT_M * 100:.0f} cm); after the blackout "
+          f"{s['after_black']}, on the return {s['return_state']} with "
+          f"{s['return_inliers']} inliers, centre "
+          f"{s['return_err_m'] * 100:.3f} cm from frame {HOST_MONO_RETURN}'s "
+          f"({j['blackout']}; limit {HOST_MONO_RETURN_LIMIT_M * 100:.0f} cm)",
+          flush=True)
+    print(f"[15b] relocalize calls (ok, candidates tried, branch, inliers, "
+          f"host ms, syncs): "
+          f"{[(c['ok'], c['candidates_tried'], c['branch'], c['n_inliers'], round(c['ms'], 1), c['syncs']) for c in reloc]} "
+          f"({j['reloc']}); the return frame {s['return_ms']:.1f} ms; one "
+          f"initialisation attempt (reconstruct_graph, "
+          f"{cfg.ransac.init_iterations} H and F hypotheses) {init_ms:.3f} "
+          f"ms between CUDA events (median of 20, queued behind a "
+          f"device-side sleep; {init_syncs} host syncs); FAST launches "
+          f"{launches} for {n} frames; host syncs {sum(sites.values())} = "
+          f"{sum(sites.values()) / n:.2f} per frame {sites}; {n} frames in "
+          f"{secs:.1f} s; peak device memory {mem:.1f} MiB; on {card_line}",
+          flush=True)
+    jd = j["direct_epnp"]
+    print(f"[15b] the Relocalizer on the return frame ({d['branch']} "
+          f"branch): ok {d['ok']} ({jd['ok']}), {d['candidates_tried']} "
+          f"candidates tried ({jd['candidates_tried']}), {d['n_inliers']} "
+          f"inliers ({jd['n_inliers']}), centre "
+          f"{(d['centre_err_m'] or float('nan')) * 100:.3f} cm from frame "
+          f"{HOST_MONO_RETURN}'s ({jd['centre_err_m'] * 100:.3f}), "
+          f"{d['ms']:.1f} ms, host syncs {d['syncs']} {d['sites']}; on "
+          f"{card_line}", flush=True)
+    bad = host_mono_failures(s)
+    if launches != n:
+        bad.append(f"{launches} FAST launches for {n} frames")
+    if bad:
+        _fail(f"host mono: {bad}")
+    return launches, n
+
+
+def host_flow_phase(torch, fast_cuda, config, synthetic, System, ate,
+                    dynamic_mod, lk_flow, fundamental, BlurGate, dev,
+                    card_line):
+    """[15c]: System with the flow motion check over the walker scene on
+    the card; one frame pair's dynamic_frontend against the CPU; lk_flow
+    and good_features timed; BlurGate on the card against the CPU. Returns
+    (FAST launches, frames)."""
+    cfg = host_flow_config(config)
+    planes = synthetic.make_room(seed=0, device=dev)
+    quad = synthetic.make_walker(**HOST_FLOW_WALKER, device=dev)
+    poses = synthetic.camera_trajectory(**HOST_FLOW_ORBIT)[:N_HOST_FLOW]
+    frames = host_flow_frames(lambda p, i: synthetic.render(
+        cfg.camera, p, planes, quad, i)[:3], poses)
+    sysm = System(cfg)
+    flags, check = [], sysm._flow_check
+
+    def kept(*a):
+        r = check(*a)
+        flags.append(r.box_dynamic[0])
+        return r
+
+    sysm._flow_check = kept
+    fast_cuda.LAUNCHES = 0
+    peak_mib(torch)
+    torch.cuda.synchronize()
+    with count_host_syncs(torch) as sites:
+        t0 = time.perf_counter()
+        states = run_host_flow(sysm, frames)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches, mem = fast_cuda.LAUNCHES, peak_mib(torch)
+    # The first frame has no previous image: the k-th check is on frame k.
+    walker = [k + 1 for k, f in enumerate(torch.stack(flags).tolist()) if f]
+    s = host_flow_summary(sysm, states, pose_centres(poses), ate, walker)
+    n, syncs = s["n"], sum(sites.values())
+    j = JAX_CPU_HOST_FLOW
+    print(f"[15c] host flow motion check (JAX package on CPU in brackets): "
+          f"frames OK {s['ok']}/{n} ({j['ok']}), lost {s['lost']} "
+          f"({j['lost']}; gate <= {HOST_FLOW_MAX_LOST}), ATE "
+          f"{s['ate_m'] * 100:.3f} cm ({j['ate_m'] * 100:.3f}; limit "
+          f"{HOST_FLOW_ATE_LIMIT_M * 100:.0f} cm), walker's box dynamic on "
+          f"{len(walker)} frames {walker} ({len(j['walker'])} frames "
+          f"{j['walker']}), keyframes {s['n_kf']} ({j['n_kf']}); FAST "
+          f"launches {launches} for {n} frames; host syncs {syncs} = "
+          f"{syncs / n:.2f} per frame {sites}; {n} frames in {secs:.1f} s "
+          f"({n / secs:.2f} fps, the card drained at the end); peak device "
+          f"memory {mem:.1f} MiB", flush=True)
+    bad = host_flow_failures(s)
+    if launches != n:
+        bad.append(f"{launches} FAST launches for {n} frames")
+
+    # One frame pair's flow check on the card against the CPU, the same
+    # F-RANSAC samples (drawn on the CPU from the correspondence mask).
+    k = HOST_FLOW_PAIR
+    boxes = torch.from_numpy(sysm._pad_boxes(frames[k + 1][2]))
+    draw = lambda valid: fundamental.sample_indices(
+        valid.cpu(), cfg.dynamic.f_ransac_iters,
+        torch.Generator().manual_seed(0)).to(valid.device)
+    res = {}
+    for where in ("cpu", dev):
+        res[str(where)] = dynamic_mod.dynamic_frontend(
+            frames[k][0].to(where), frames[k + 1][0].to(where),
+            boxes.to(where), cfg, idx=draw)
+    c, g = res["cpu"], res[str(dev)]
+    same = {f: bool(torch.equal(getattr(g, f).cpu(), getattr(c, f)))
+            for f in ("mask", "box_dynamic", "box_blurred", "outlier_valid")}
+    any_tm = g.outlier_valid.cpu() | c.outlier_valid
+    gap = float((g.outliers.cpu() - c.outliers).abs().max())
+    print(f"[15c] dynamic_frontend on frames {k}, {k + 1}, card vs CPU with "
+          f"the same samples: equal {same}, T_M {int(g.n_outliers)} / "
+          f"{int(c.n_outliers)}, walker's box dynamic "
+          f"{bool(g.box_dynamic[0])}, tracked points max gap {gap:.3g} px "
+          f"(tolerance {FLOW_CARD_TOL_PX:g})", flush=True)
+    if not (same["mask"] and same["box_dynamic"] and same["box_blurred"]) \
+            or not gap < FLOW_CARD_TOL_PX or not bool(any_tm.any()):
+        bad.append(f"dynamic_frontend card vs CPU: {same}, gap {gap}")
+
+    # lk_flow and good_features alone, at the path's shapes.
+    prev, cur = frames[k][0], frames[k + 1][0]
+    n_pts = cfg.dynamic.n_flow_points
+    pts = lk_flow.good_features(prev, n_pts)[0]
+    pp, cp = lk_flow.build_flow_pyramid(prev), lk_flow.build_flow_pyramid(cur)
+    for name, fn in (
+            (f"good_features ({n_pts} points, {tuple(prev.shape)})",
+             lambda: lk_flow.good_features(prev, n_pts)),
+            (f"lk_flow ({n_pts} points, 4 levels, 21x21, 10 steps)",
+             lambda: lk_flow.lk_flow(pp, cp, pts))):
+        ms = _device_ms(torch, fn, 20)
+        n_kern, kern_ms = device_kernels(torch, fn)
+        print(f"[15c] {name}: {ms:.4f} ms between CUDA events (median of "
+              f"20, queued behind a device-side sleep), {n_kern} device "
+              f"kernels per call ({kern_ms:.4f} ms of kernel time, "
+              f"profiled); on {card_line}", flush=True)
+        if not (np.isfinite(ms) and ms > 0):
+            bad.append(f"{name}: time {ms}")
+
+    # BlurGate over the first frames, on the card and on the CPU.
+    emits = {}
+    for where in ("cpu", dev):
+        gate = BlurGate(device=where)
+        emits[str(where)] = [
+            (e, None if o is None else o[0])
+            for e, o in (gate.push(frames[i][0].to(where), stamp=float(i))
+                         for i in range(BLUR_GATE_FRAMES))]
+    print(f"[15c] BlurGate over frames 0-{BLUR_GATE_FRAMES - 1} (emit, "
+          f"stamp): card {emits[str(dev)]}, CPU {emits['cpu']}", flush=True)
+    if emits[str(dev)] != emits["cpu"]:
+        bad.append("BlurGate emits differ between card and CPU")
+    if bad:
+        _fail(f"host flow: {bad}")
+    return launches, n
+
+
+def checkpoint_phase(torch, checkpoint, System, SystemConfig, hsys, last,
+                     card_line):
+    """[15d]: [13]'s finished map saved, loaded into a fresh System in
+    localization mode, and [13]'s last frame tracked against it."""
+    import tempfile
+    cfg = SystemConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_map(path, hsys.map, tracker_state=hsys.tracker.state)
+        t1 = time.perf_counter()
+        sysm = System(cfg)
+        restored = checkpoint.resume(path, sysm)
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+    m = sysm.map
+    n_kfs = len(m.valid_keyframes())
+    stamp, g, d, b = last
+    state, n = sysm.track_rgbd(g, d, stamp=stamp + 1.0, boxes=b)
+    kept = len(sysm.map.valid_keyframes())
+    print(f"[15d] checkpoint of [13]'s map: {size / 2 ** 20:.1f} MiB, saved "
+          f"in {t1 - t0:.2f} s, loaded in {t2 - t1:.2f} s, {n_kfs} keyframes "
+          f"and {len(m.valid_points())} points; localization mode on "
+          f"[13]'s last frame: {state} with {n} inliers (gate > 100), "
+          f"keyframes {n_kfs} -> {kept}; on {card_line}", flush=True)
+    if not restored or state != "OK" or n <= 100 or kept != n_kfs:
+        _fail(f"checkpoint resume: {state}, {n} inliers, keyframes "
+              f"{n_kfs} -> {kept}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -888,10 +1241,13 @@ def main():
     from coebslam_tpu_torch import config
     from coebslam_tpu_torch.config import SystemConfig
     from coebslam_tpu_torch.eval import ate
+    from coebslam_tpu_torch.io import checkpoint
     from coebslam_tpu_torch.models import detector as detector_mod, yolov5
+    from coebslam_tpu_torch.models.detector import BlurGate
     from coebslam_tpu_torch.ops import extractor, fast, fast_cuda, \
         initializer_ops
-    from coebslam_tpu_torch.ops import fundamental, pnp
+    from coebslam_tpu_torch.ops import fundamental, lk_flow, pnp
+    from coebslam_tpu_torch.slam import dynamic as dynamic_mod
     from coebslam_tpu_torch.slam import frame as frame_mod
     from coebslam_tpu_torch.slam import handoff, vocabulary
     from coebslam_tpu_torch.slam.global_ba import GlobalBA
@@ -901,6 +1257,13 @@ def main():
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(name):
+        """Print the seconds of the phase that ends here."""
+        now = time.perf_counter()
+        print(f"[{name}] phase {now - laps[-1]:.1f} s", flush=True)
+        laps.append(now)
     # ---- 1. card + build
     card_line = card()
     print(card_line, flush=True)
@@ -912,6 +1275,7 @@ def main():
     for line in ptxas_report(lib):
         print(f"[1] ptxas: {line}", flush=True)
 
+    lap("1")
     # ---- 2. kernel vs plain on the card
     cfg = SystemConfig()
     cam = cfg.camera
@@ -954,6 +1318,7 @@ def main():
                   f"strength bit-equal, {int((sc_k > 0).sum())} corners",
                   flush=True)
 
+    lap("2")
     # ---- 3. extractor: kernel path vs plain path on the card
     mask = torch.zeros((cam.height, cam.width), dtype=torch.bool, device=dev)
     mask[:, :200] = True
@@ -974,6 +1339,7 @@ def main():
         print(f"[3] extractor {name}: {int(fk.valid.sum())} keypoints, valid "
               f"equal, uv err {uv_err:g}, desc bit-equal", flush=True)
 
+    lap("3")
     # ---- 4. the main path
     t0 = time.perf_counter()
     G, D, B, C = synthetic.dynamic_orbit(cam, N_FRAMES)
@@ -1033,6 +1399,7 @@ def main():
     print(f"[4] peak device memory {peak_mib(torch):.1f} MiB", flush=True)
     sessions = {"orbit": (cfg, res, gt)}
 
+    lap("4")
     # ---- 5. kernel time beside the plain version and the bound
     thr = torch.tensor(float(cfg.orb.fast_threshold_min), device=dev)
     flush = l2_flush(torch)
@@ -1063,6 +1430,7 @@ def main():
     if not all(np.isfinite(t) and t > 0 for t in times):
         _fail(f"FAST times not finite: {times}")
 
+    lap("5")
     # ---- 6. the loop circuit (bench.py run_loop_event)
     clim = RTLimits(**CIRCUIT_LIMITS)
     n_circ = synthetic.N_CIRCUIT + synthetic.N_OVERLAP
@@ -1101,6 +1469,7 @@ def main():
     sessions["circuit"] = (ccfg, res, gt)
     circ_frames, gt_circ = frames, gt    # [14a] drives the host path on them
 
+    lap("6")
     # ---- 7. kidnap relocalization (tests/test_realtime_loop.py)
     sched = list(range(0, 50)) + list(range(6, 16))
     frames, gt = loop_scene(dev, sched, 1.0, synthetic, ccfg.camera)
@@ -1131,6 +1500,7 @@ def main():
         _fail(f"kidnap: {kid_launches} launches for {n} frames")
     print(f"[7] peak device memory {peak_mib(torch):.1f} MiB", flush=True)
 
+    lap("7")
     # ---- 8. the orbit, self-detect (bench.py run_realtime_selfdetect)
     det = walker_detector(config, detector_mod, cfg.dynamic)
     # Its first call (cuDNN's algorithm choice) stays out of the run.
@@ -1174,6 +1544,7 @@ def main():
         _fail(f"self-detect: {sd_launches} launches, {det.dispatches} "
               f"detections for {n} frames")
 
+    lap("8")
     # ---- 9. the detector alone, full width and walker width
     g_cpu = torch.from_numpy(G[N_FRAMES // 2])
     g_dev = g_cpu.to(dev)
@@ -1228,6 +1599,7 @@ def main():
         if not (np.isfinite(det_ms) and det_ms > 0):
             _fail(f"detector {name}: time {det_ms}")
 
+    lap("9")
     # ---- 10. handoff and offline global BA of [4]'s and [6]'s sessions
     for name, (scfg, sres, sgt) in sessions.items():
         t0 = time.perf_counter()
@@ -1255,6 +1627,7 @@ def main():
             _fail(f"circuit refined ATE {rep['ate_refined_m']} against "
                   f"{rep['ate_realtime_m']} realtime")
 
+    lap("10")
     # ---- 11. stereo at full width (tests/test_stereo_wide.py's scene)
     scfg = stereo_config(config)
     t0 = time.perf_counter()
@@ -1295,6 +1668,7 @@ def main():
         _fail(f"stereo: {st_launches} FAST launches for {n} frames")
     del frames
 
+    lap("11")
     # ---- 12. monocular at full width (tests/test_realtime_mono.py's scene)
     mcfg = mono_config(config)
     frames, mgt = mono_scene(synthetic, mcfg.camera, dev)
@@ -1372,14 +1746,16 @@ def main():
         _fail(f"mono Sim3 ATE {ms_['ate_sim3_m']} m >= {MONO_ATE_LIMIT_M} m")
     if mo_launches != n:
         _fail(f"mono: {mo_launches} FAST launches for {n} frames")
+    mono_frames, mono_gt = frames, mgt    # [15b] reuses them
+    lap("12")
     # ---- 13. the host-orchestrated System on the TUM replica
     t0 = time.perf_counter()
     hframes, hgt = replica_host_frames(replica, N_HOST, dev)
     print(f"[13] rendered the first {N_HOST} frames of the 400-frame replica "
           f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    hsys = System(SystemConfig())       # [15d] saves its map
     h_launches, h_syncs, h_sites, h_s, h_mem, hs, stage_ms = \
-        host_phase(torch, fast_cuda, System(SystemConfig()), hframes, hgt,
-                   ate)
+        host_phase(torch, fast_cuda, hsys, hframes, hgt, ate)
     j = JAX_CPU_HOST
     print(f"[13] host System, synchronous mapping (JAX package on CPU in "
           f"brackets): frames OK {hs['ok']}/{hs['n']} ({j['ok']}), lost "
@@ -1404,14 +1780,35 @@ def main():
     if h_launches != hs["n"]:
         _fail(f"host System: {h_launches} FAST launches for {hs['n']} "
               f"frames")
+    lap("13")
     # ---- 14a. host loop closing: System(vocabulary=) over [6]'s circuit
     hl_launches, hl_n = host_loop_phase(
         torch, fast_cuda, extractor, vocabulary, System, GlobalBA, ate,
         config, synthetic, circ_frames, gt_circ, card_line)
+    lap("14a")
     # ---- 14b. host relocalization after a blackout
     hr_launches, hr_n = host_reloc_phase(
         torch, fast_cuda, extractor, vocabulary, frame_mod, fundamental, pnp,
         System, config, synthetic, dev, card_line)
+    lap("14b")
+    # ---- 15a. the host System's stereo entry
+    hst_launches, _ = host_stereo_phase(torch, fast_cuda, config, synthetic,
+                                        System, ate, dev, card_line)
+    lap("15a")
+    # ---- 15b. the host System's monocular entry, with a kidnap
+    hmo_launches, _ = host_mono_phase(
+        torch, fast_cuda, config, extractor, vocabulary, initializer_ops,
+        frame_mod, System, ate, mono_frames, mono_gt, card_line)
+    lap("15b")
+    # ---- 15c. the flow motion check
+    hfl_launches, _ = host_flow_phase(
+        torch, fast_cuda, config, synthetic, System, ate, dynamic_mod,
+        lk_flow, fundamental, BlurGate, dev, card_line)
+    lap("15c")
+    # ---- 15d. a checkpoint of [13]'s map, resumed in localization mode
+    checkpoint_phase(torch, checkpoint, System, SystemConfig, hsys,
+                     hframes[-1], card_line)
+    lap("15d")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
@@ -1431,7 +1828,10 @@ def main():
                              "stereo": st_launches, "mono": mo_launches,
                              "host_replica": h_launches,
                              "host_loop": hl_launches,
-                             "host_reloc": hr_launches},
+                             "host_reloc": hr_launches,
+                             "host_stereo": hst_launches,
+                             "host_mono": hmo_launches,
+                             "host_flow": hfl_launches},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

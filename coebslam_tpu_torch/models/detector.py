@@ -6,7 +6,7 @@ runs resize, normalisation, the network, decode, fixed-size NMS, the box
 dilation and the padding to ``[dynamic.max_boxes, 4]`` on the detector's
 device with no read on the host, so the realtime loop can feed its boxes
 to the dynamic step in the same stream. ``detect`` is the host path.
-``BlurGate`` is not ported yet (it needs the LK flow of the host path).
+``BlurGate`` is the reference's flow-magnitude frame gate.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ..config import DetectorConfig, DynamicConfig
-from ..ops import pyramid
+from ..ops import blur as blur_ops
+from ..ops import lk_flow, pyramid
 from ..utils.device import resolve_device
 from . import yolov5
 
@@ -155,3 +156,54 @@ class YoloDetector:
         the dynamic step takes them with no read on the host."""
         self.dispatches += 1
         return self.run(gray)[3]
+
+
+class BlurGate:
+    """Flow-magnitude frame gate (the reference's yolo_v5_blur variant).
+
+    Between consecutive frames it sums the LK flow magnitude over tracked
+    corners; above ``flow_threshold`` it buffers ``buffer_size`` frames and
+    emits only the sharpest (the largest Laplacian variance). Both numbers
+    come from one device call and one transfer. ``push`` returns (emit,
+    (stamp, gray) or None): emit False means the frame is buffered.
+    Runs on ``device`` (default CUDA; no CPU fallback).
+    """
+
+    def __init__(self, flow_threshold: float = 500.0, buffer_size: int = 3,
+                 n_track_points: int = 256, device=None):
+        self.flow_threshold = float(flow_threshold)
+        self.buffer_size = int(buffer_size)
+        self.n_track_points = int(n_track_points)
+        self.device = resolve_device(device, "BlurGate")
+        self._buf = []                     # [(stamp, gray, sharpness)]
+        self._prev = None
+
+    def measure(self, prev_gray, gray) -> torch.Tensor:
+        """[2] device tensor: the summed flow magnitude of the tracked
+        corners, and the variance of ``gray``'s Laplacian."""
+        pts, ok = lk_flow.good_features(prev_gray, self.n_track_points)
+        fr = lk_flow.lk_flow(lk_flow.build_flow_pyramid(prev_gray),
+                             lk_flow.build_flow_pyramid(gray), pts)
+        mag = torch.where(ok & fr.valid,
+                          torch.linalg.norm(fr.points - pts, dim=-1),
+                          torch.zeros_like(pts[:, 0]))
+        sharp = torch.var(blur_ops.laplacian_map(gray), unbiased=False)
+        return torch.stack([mag.sum(), sharp])
+
+    def push(self, gray, stamp: float = 0.0):
+        g = gray if isinstance(gray, torch.Tensor) \
+            else torch.from_numpy(np.asarray(gray, np.float32))
+        g = g.to(self.device, torch.float32)
+        if self._prev is None:
+            self._prev = g
+            return True, (stamp, gray)
+        motion, sharp = self.measure(self._prev, g).cpu().tolist()
+        self._prev = g
+        if motion <= self.flow_threshold and not self._buf:
+            return True, (stamp, gray)
+        self._buf.append((stamp, gray, sharp))
+        if len(self._buf) < self.buffer_size:
+            return False, None
+        best = max(self._buf, key=lambda x: x[2])
+        self._buf = []
+        return True, (best[0], best[1])

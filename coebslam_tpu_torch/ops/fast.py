@@ -103,6 +103,18 @@ def _parab_offsets(c, lx, rx, uy, dy_):
     return torch.stack([parab(uy, c, dy_), parab(lx, c, rx)], dim=-1)
 
 
+def subpixel_refine(strength, yx):
+    """Quadratic sub-pixel offsets (dy, dx) in [-0.5, 0.5] of corners
+    ``yx`` [N, 2] on one [H, W] strength map: a parabola through the
+    values at (p-1, p, p+1) along each axis."""
+    h, w = strength.shape
+    y = torch.clamp(yx[:, 0], 1, h - 2)
+    x = torch.clamp(yx[:, 1], 1, w - 2)
+    return _parab_offsets(strength[y, x], strength[y, x - 1],
+                          strength[y, x + 1], strength[y - 1, x],
+                          strength[y + 1, x])
+
+
 def subpixel_refine_levels(strength, level, yx):
     """Quadratic sub-pixel offsets (dy, dx) in [-0.5, 0.5] of corners
     ``yx`` [N, 2] on levels ``level`` [N] of a [L, H, W] strength stack

@@ -1,13 +1,20 @@
-"""COEB dynamic-scene front-end of the realtime path.
+"""COEB dynamic-scene front-end: motion check, blur gate, box classifier.
 
-Counterpart of ``DynState``, ``init_dyn_state``, ``classify_boxes`` and
-``dynamic_step`` of ``coebslam_tpu/slam/dynamic.py``: the motion check
-matches the previous frame's keypoints to the current ones, fits F by
-RANSAC, and takes epipolar outliers as the dynamic point set T_M; boxes are
-classified by T_M density or blur + T_M, dynamic boxes mask keypoints for
-``sticky_frames`` frames, and the masked area drives the next frame's
-extractor (area flag). The LK motion check of the host path is not part of
-this slice.
+Counterpart of ``coebslam_tpu/slam/dynamic.py``. Two motion checks:
+
+- the reference's own (``motion_check="flow"``, ``dynamic_frontend``):
+  Harris corners of the previous frame, pyramidal LK into the current one,
+  the border and neighbourhood-difference filters, F-RANSAC, and the
+  epipolar outliers form the dynamic point set T_M;
+- the realtime redesign (``dynamic_step``, chained through ``DynState``):
+  the previous frame's keypoints matched to the current ones by
+  descriptor, F-RANSAC, epipolar outliers as T_M, with keypoint culling,
+  the sticky mask and the area flag in the same frame program.
+
+Boxes are classified by T_M density or blur + T_M; the masked area drives
+the extractor's area mode. The F-RANSAC samples come from a
+``torch.Generator`` or are given (``idx``), since a torch generator cannot
+reproduce ``jax.random`` draws.
 """
 from __future__ import annotations
 
@@ -17,7 +24,18 @@ import torch
 
 from ..config import SystemConfig
 from ..ops import blur as blur_ops
-from ..ops import brief, fundamental, matching
+from ..ops import brief, fundamental, lk_flow, matching
+
+
+class DynamicResult(NamedTuple):
+    """Output of the flow front-end (``dynamic_frontend``)."""
+    mask: torch.Tensor          # [H, W] bool — keypoints forbidden
+    area_flag: torch.Tensor     # bool — masked area over the limit
+    box_dynamic: torch.Tensor   # [B] bool
+    box_blurred: torch.Tensor   # [B] bool
+    outliers: torch.Tensor      # [N, 2] tracked points (T_M where valid)
+    outlier_valid: torch.Tensor  # [N] bool
+    n_outliers: torch.Tensor    # int64
 
 
 class DynState(NamedTuple):
@@ -48,6 +66,42 @@ def init_dyn_state(cfg: SystemConfig, device) -> DynState:
         area_flag=torch.tensor(False, device=device))
 
 
+def moving_object_check(prev_gray, gray, cfg: SystemConfig, *,
+                        generator: Optional[torch.Generator] = None,
+                        idx=None):
+    """The reference's motion check: Harris corners of ``prev_gray``,
+    pyramidal LK into ``gray``, the border margin and the 3x3
+    absolute-difference filter, F-RANSAC over what is left (samples from
+    ``generator`` or ``idx``), and epipolar outliers.
+
+    Returns (tracked points [N, 2] in ``gray``'s pixels, T_M mask [N]).
+    """
+    dyn = cfg.dynamic
+    h, w = gray.shape
+    pts, pts_valid = lk_flow.good_features(
+        prev_gray, dyn.n_flow_points, quality=0.01, min_distance=8)
+    flow = lk_flow.lk_flow(lk_flow.build_flow_pyramid(prev_gray),
+                           lk_flow.build_flow_pyramid(gray), pts)
+
+    m = float(dyn.flow_edge_margin)
+    q = flow.points
+    in_border = ((pts[:, 0] >= m) & (pts[:, 0] < w - m)
+                 & (pts[:, 1] >= m) & (pts[:, 1] < h - m)
+                 & (q[:, 0] >= m) & (q[:, 0] < w - m)
+                 & (q[:, 1] >= m) & (q[:, 1] < h - m))
+    diff_sum = torch.sum(torch.abs(lk_flow.bilinear_gather(prev_gray, pts, 3)
+                                   - lk_flow.bilinear_gather(gray, q, 3)),
+                         dim=(1, 2))
+    good = pts_valid & flow.valid & in_border \
+        & (diff_sum <= dyn.flow_diff_threshold)
+
+    fres = fundamental.find_fundamental_ransac(
+        pts, q, good, idx=idx, generator=generator,
+        n_hypotheses=dyn.f_ransac_iters, threshold=dyn.f_ransac_threshold)
+    d = fundamental.epipolar_distance(fres.F, pts, q)
+    return q, good & (d > dyn.epipolar_threshold)
+
+
 def classify_boxes(outliers, outlier_valid, boxes, box_blurred,
                    cfg: SystemConfig):
     """Two-tier dynamic classification of [B, 4] boxes -> [B] bool."""
@@ -62,6 +116,30 @@ def classify_boxes(outliers, outlier_valid, boxes, box_blurred,
     tier1 = counts.to(torch.float32) * dyn.box_density_scale > area
     tier2 = box_blurred & (counts >= 1)
     return present & (tier1 | tier2)
+
+
+def dynamic_frontend(prev_gray, gray, boxes, cfg: SystemConfig, *,
+                     generator: Optional[torch.Generator] = None,
+                     idx=None) -> DynamicResult:
+    """The flow path's frame: ``moving_object_check``, the Laplacian blur
+    gate and the two-tier classification of the padded [B, 4] ``boxes``;
+    the mask is the union of the dynamic boxes and the area limit scales
+    with the resolution."""
+    outliers, outlier_valid = moving_object_check(
+        prev_gray, gray, cfg, generator=generator, idx=idx)
+    box_blurred = blur_ops.box_blur_scores(gray, boxes) \
+        < cfg.dynamic.blur_threshold
+    box_dynamic = classify_boxes(outliers, outlier_valid, boxes, box_blurred,
+                                 cfg)
+    h, w = gray.shape
+    masks = blur_ops.box_mask(h, w, boxes)
+    mask = torch.any(masks & box_dynamic[:, None, None], dim=0)
+    area_flag = mask.sum() > cfg.dynamic.masked_area_limit \
+        * (h * w) / (480.0 * 640.0)
+    return DynamicResult(mask=mask, area_flag=area_flag,
+                         box_dynamic=box_dynamic, box_blurred=box_blurred,
+                         outliers=outliers, outlier_valid=outlier_valid,
+                         n_outliers=outlier_valid.sum())
 
 
 def dynamic_step(fd, gray, state: DynState, boxes, cfg: SystemConfig, *,

@@ -1,14 +1,29 @@
-"""The ``System`` facade of the host-orchestrated path (RGB-D).
+"""The ``System`` facade of the host-orchestrated path.
 
 Counterpart of ``coebslam_tpu/slam/system.py``: construction wires the
 ``Tracker`` and the ``LocalMapper`` around one ``MapArena``;
-``track_rgbd`` takes a frame with optional detector boxes; localization
-mode, reset, the realtime (pipelined) mode and the trajectory exports
-follow the reference's surface. The dynamic front-end is the fused
-``"feature"`` motion check: given boxes win, otherwise the detector's
-``detect_device`` runs every ``detector_cadence`` frames; while the system
-is not initialised every box is treated as dynamic (a host mask, the
-reference's conservative initialisation).
+``track_rgbd``, ``track_stereo`` and ``track_monocular`` take a frame
+(RGB-D with optional detector boxes, a rectified pair, one image with
+optional boxes); localization mode, reset, the realtime (pipelined) mode
+and the trajectory exports follow the reference's surface.
+
+The dynamic front-end of ``track_rgbd`` is one of two motion checks:
+
+- ``"feature"`` (default): the fused check inside the frame's program;
+  given boxes win, otherwise the detector's ``detect_device`` runs every
+  ``detector_cadence`` frames; while the system is not initialised every
+  box is treated as dynamic (a host mask, the reference's conservative
+  initialisation);
+- ``"flow"``: the reference's LK-flow check (``dynamic.dynamic_frontend``)
+  on the previous and the current image, before the frame is tracked;
+  boxes come from the caller or ``detector.detect``. The frame's mask and
+  area flag are read in one transfer, and a mask stays on for
+  ``sticky_frames`` frames; before there is a previous frame every box is
+  dynamic, and no point is spawned inside a box unless
+  ``spawn_in_boxes``.
+
+``track_monocular`` with boxes runs the flow check too, whatever
+``motion_check`` says, as the reference does.
 
 With a ``vocabulary`` the BoW half is wired in as in the reference: the
 keyframe database (culled keyframes leave it), relocalization as the
@@ -16,9 +31,7 @@ tracker's ``reloc_fn`` and loop closing after each keyframe's local
 mapping. The vocabulary goes to the device once; each keyframe's and each
 relocalizing frame's words are computed there and read once.
 
-The system runs on ``device`` (default CUDA; no CPU fallback). Not ported
-yet, and raising ``NotImplementedError``: the ``"flow"`` motion check and
-the host stereo and monocular entries.
+The system runs on ``device`` (default CUDA; no CPU fallback).
 """
 from __future__ import annotations
 
@@ -40,11 +53,8 @@ from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
 from .map import MapArena
 from .relocalization import Relocalizer
-from .tracking import (HOST_SENSORS_TODO, LOST, NOT_INITIALIZED, Sampler,
-                       Tracker)
-
-FLOW_TODO = ("the 'flow' motion check (ops/lk_flow.py) is not ported yet "
-             "(ROADMAP.md queue 1)")
+from . import dynamic as dynamic_mod
+from .tracking import InitSampler, LOST, NOT_INITIALIZED, Sampler, Tracker
 
 
 def _np_box_mask(h: int, w: int, boxes: np.ndarray) -> np.ndarray:
@@ -63,28 +73,32 @@ class System:
                  vocabulary: Optional[voc_mod.Vocabulary] = None,
                  device=None, sampler: Optional[Sampler] = None,
                  reloc_sampler: Optional[RansacSampler] = None,
-                 loop_sampler: Optional[RansacSampler] = None):
+                 loop_sampler: Optional[RansacSampler] = None,
+                 init_sampler: Optional[InitSampler] = None):
         """Args:
           cfg: the configuration.
-          detector: optional detector with ``detect_device(gray)`` (the
-            port's ``models.detector.YoloDetector``), run when no boxes are
-            passed.
+          detector: optional detector with ``detect_device(gray)`` and
+            ``detect(gray)`` (the port's ``models.detector.YoloDetector``),
+            run when no boxes are passed.
           vocabulary: optional ``slam.vocabulary.Vocabulary``: enables the
             keyframe database, relocalization and loop closing.
           device: where it runs (default CUDA).
-          sampler: injects the dynamic step's F-RANSAC draws
-            (``Tracker.sampler``).
+          sampler: injects the F-RANSAC draws of the motion check:
+            ``sampler(seed, valid)`` with the frame's seed of the fused
+            check (``Tracker.sampler``), or the flow check's count so far
+            (1 for the first).
           reloc_sampler, loop_sampler: inject the relocalizer's and the
             loop closer's RANSAC draws (``Relocalizer.sampler``,
             ``LoopCloser.sampler``).
+          init_sampler: injects the monocular initializer's draws
+            (``Tracker.init_sampler``).
         """
-        if cfg.use_dynamic_filtering and cfg.dynamic.motion_check != "feature":
-            raise NotImplementedError(FLOW_TODO)
         self.cfg = cfg
         self.device = resolve_device(device, "System")
         self.detector = detector
         self.map = MapArena(cfg)
-        self.tracker = Tracker(cfg, self.map, self.device, sampler=sampler)
+        self.tracker = Tracker(cfg, self.map, self.device, sampler=sampler,
+                               init_sampler=init_sampler)
         self.mapper = LocalMapper(cfg, self.map, self.device)
         self.tracker.on_keyframe = self._on_keyframe
         self.localization_only = False
@@ -109,6 +123,12 @@ class System:
         self._boxes_dev: Optional[torch.Tensor] = None
         self._frame_count = 0
         self.metrics = MetricsCollector()
+        self.sampler = sampler
+        self._prev_gray: Optional[torch.Tensor] = None   # on the device
+        self._recent_masks = []
+        self._last_flow: Optional[dynamic_mod.DynamicResult] = None
+        self._flow_seed = 0
+        self._flow_gen = torch.Generator(device=self.device)
 
     # ------------------------------------------------------------------ #
 
@@ -144,42 +164,131 @@ class System:
         """
         gray = self._to_gray(rgb_or_gray)
         mask = None
+        area_mode = False
+        spawn_mask = None
         boxes_dev = None
-        if self.cfg.use_dynamic_filtering:
+        h, w = (int(x) for x in gray.shape)
+        if self.cfg.use_dynamic_filtering \
+                and self.cfg.dynamic.motion_check == "feature":
             boxes_dev = self._device_boxes(gray, boxes)
             if boxes_dev is not None \
                     and self.tracker.state.mode == NOT_INITIALIZED:
                 # Conservative initialisation: every box is dynamic until
                 # there is motion evidence (host mask, initialisation only).
-                b = boxes_dev.cpu().numpy()
-                h, w = gray.shape
-                mask = _np_box_mask(int(h), int(w), b)
+                mask = _np_box_mask(h, w, boxes_dev.cpu().numpy())
                 boxes_dev = None
+        elif self.cfg.use_dynamic_filtering:
+            if boxes is None and self.detector is not None:
+                boxes = self.detector.detect(gray)
+            if boxes is not None:
+                padded = self._pad_boxes(boxes)
+                all_box_mask = _np_box_mask(h, w, padded)
+                if not self.cfg.dynamic.spawn_in_boxes:
+                    # Never create points inside a box: one unclassified
+                    # frame would otherwise bake a mover into the map.
+                    spawn_mask = all_box_mask
+                if self._prev_gray is not None:
+                    dres = self._flow_check(gray, padded)
+                    # The mask and the area flag in one transfer.
+                    flat = torch.cat([dres.mask.reshape(-1),
+                                      dres.area_flag.reshape(1)]).cpu()
+                    mask = flat[:-1].numpy().reshape(h, w)
+                    area_mode = bool(flat[-1])
+                    # Sticky masking: movers stay masked for a few frames
+                    # when the epipolar evidence is intermittent.
+                    if self.cfg.dynamic.sticky_frames > 0:
+                        if mask.any():
+                            self._recent_masks.append(mask)
+                        self._recent_masks = self._recent_masks[
+                            -self.cfg.dynamic.sticky_frames:]
+                        for rm in self._recent_masks:
+                            mask = mask | rm
+                elif self.tracker.state.mode == NOT_INITIALIZED:
+                    # No previous frame, no motion evidence: every box is
+                    # dynamic at initialisation.
+                    mask = all_box_mask
         t0 = time.perf_counter()
         state, n = self.tracker.process_frame(
-            gray, depth, stamp, dynamic_mask=mask, boxes_dev=boxes_dev)
+            gray, depth, stamp, dynamic_mask=mask, area_mode=area_mode,
+            spawn_mask=spawn_mask, boxes_dev=boxes_dev)
+        return self._after_frame(gray, stamp, state, n, t0)
+
+    def track_monocular(self, rgb_or_gray, stamp: float,
+                        boxes: Optional[Sequence] = None):
+        """One monocular frame: two-view initialisation, then tracking with
+        the map grown by triangulation. With boxes (and dynamic filtering)
+        the flow check masks the dynamic ones. Returns (state,
+        n_inliers)."""
+        assert self.cfg.sensor == "monocular", \
+            "construct the System with cfg.sensor='monocular'"
+        gray = self._to_gray(rgb_or_gray)
+        mask = None
+        if self.cfg.use_dynamic_filtering and boxes is not None \
+                and self._prev_gray is not None:
+            mask = self._flow_check(gray, self._pad_boxes(boxes)).mask
+        t0 = time.perf_counter()
+        state, n = self.tracker.process_frame(gray, None, stamp,
+                                              dynamic_mask=mask)
+        return self._after_frame(gray, stamp, state, n, t0)
+
+    def track_stereo(self, left, right, stamp: float):
+        """One rectified stereo pair: depth from row-band matching, then
+        the RGB-D tracking path. Returns (state, n_inliers)."""
+        assert self.cfg.sensor == "stereo", \
+            "construct the System with cfg.sensor='stereo'"
+        gl = self._to_gray(left)
+        gr = self._to_gray(right)
+        t0 = time.perf_counter()
+        state, n = self.tracker.process_frame_stereo(gl, gr, stamp)
+        return self._after_frame(gl, stamp, state, n, t0)
+
+    def _flow_check(self, gray, padded) -> dynamic_mod.DynamicResult:
+        """``dynamic_frontend`` on the previous and the current image with
+        the padded boxes; its F-RANSAC draws come from the injected
+        ``sampler`` (seeded with the count of flow checks) or a generator
+        seeded the same way."""
+        self._flow_seed += 1
+        seed = self._flow_seed
+        if self.sampler is not None:
+            idx, gen = (lambda valid: self.sampler(seed, valid)
+                        .to(valid.device)), None
+        else:
+            idx, gen = None, self._flow_gen.manual_seed(seed)
+        dres = dynamic_mod.dynamic_frontend(
+            self._prev_gray, gray, self.tracker._up(padded), self.cfg,
+            generator=gen, idx=idx)
+        self._last_flow = dres
+        return dres
+
+    def _after_frame(self, gray, stamp, state, n, t0):
         self.metrics.record(
             frame=self._frame_count, stamp=stamp, state=state, n_inliers=n,
             n_map_points=len(self.map.valid_points()),
             n_keyframes=len(self.map.valid_keyframes()),
             budget=self.tracker.state.budget,
             wall_ms=(time.perf_counter() - t0) * 1e3)
+        self._prev_gray = gray
         self._frame_count += 1
         self._maybe_reset(state)
         return state, n
-
-    def track_monocular(self, rgb_or_gray, stamp: float, boxes=None):
-        raise NotImplementedError(HOST_SENSORS_TODO)
-
-    def track_stereo(self, left, right, stamp: float):
-        raise NotImplementedError(HOST_SENSORS_TODO)
 
     # ------------------------------------------------------------------ #
 
     @property
     def last_dynamic(self):
-        """The newest frame's dynamic-step result (box classes, counts and
-        the sticky mask), read from the device when asked for."""
+        """The newest dynamic result, read from the device when asked for:
+        the flow check's (its frame's mask, before the sticky union, the
+        box classes and the T_M points), else the fused step's (box
+        classes, counts and the sticky mask)."""
+        if self._last_flow is not None:
+            f = self._last_flow
+            return SimpleNamespace(
+                box_dynamic=f.box_dynamic.cpu().numpy(),
+                box_blurred=f.box_blurred.cpu().numpy(),
+                n_outliers=int(f.n_outliers), mask=f.mask.cpu().numpy(),
+                area_flag=bool(f.area_flag),
+                outliers=f.outliers.cpu().numpy(),
+                outlier_valid=f.outlier_valid.cpu().numpy())
         tr = self.tracker
         if tr.last_dyn_info is None or tr._dyn_state is None:
             return None
@@ -226,6 +335,7 @@ class System:
         self.tracker.state.__init__(budget=self.cfg.orb.n_features)
         self.tracker.reset_runtime()
         self.tracker.ref_kf = -1
+        self._prev_gray = None
 
     def _maybe_reset(self, state: str) -> None:
         """Reset when lost with a small map (fewer than

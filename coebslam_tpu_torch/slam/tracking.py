@@ -8,19 +8,22 @@ stage always runs (the reference skips it with ``lax.cond`` when stage 0
 was healthy); its result is adopted only when stage 0 was weak, so the
 state is the same without a host read of the device-side condition.
 
-``Tracker`` is the host state machine around it (RGB-D): initialisation
-from the first frame with enough keypoints, the frame's dispatch, the
-decision tail (``_finalize``: LOST and recovery, found/visible counts, the
-keyframe policy and keyframe creation with point spawning), the adaptive
-feature budget and the loop-consistent trajectory. Each finalize reads the
-frame's decision bundle back in one transfer (``pipelined`` with
-``finalize_batch`` B: one transfer for B frames); a keyframe reads its
-feature block in one more. The jitted step programs of the reference are
-the plain functions ``frontend``, ``step_rgbd``, ``step_rgbd_dyn`` and
-``run_track``. The dynamic step's F-RANSAC draws from a
-``torch.Generator`` seeded per frame as the reference seeds its
-``PRNGKey`` (tests inject the reference's draws through ``sampler``). The
-host stereo and monocular entries are not ported yet.
+``Tracker`` is the host state machine around it (RGB-D, stereo and
+monocular): initialisation (RGB-D and stereo from the first frame with
+enough keypoints; monocular from two views through the H/F initializer),
+the frame's dispatch, the decision tail (``_finalize``: LOST and
+recovery, found/visible counts, the keyframe policy and keyframe creation
+with point spawning), the adaptive feature budget and the loop-consistent
+trajectory. Each finalize reads the frame's decision bundle back in one
+transfer (``pipelined`` with ``finalize_batch`` B: one transfer for B
+frames); a keyframe reads its feature block in one more; a monocular
+initialisation attempt reads its result in one. The jitted step programs
+of the reference are the plain functions ``frontend``, ``step_rgbd``,
+``step_stereo``, ``step_rgbd_dyn`` and ``run_track``. The RANSACs draw
+from ``torch.Generator``s seeded as the reference seeds its ``PRNGKey``s
+(per frame for the dynamic step, from the stamp for the monocular
+initializer); tests inject the reference's draws through ``sampler`` and
+``init_sampler``.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from ..config import SystemConfig
 from ..geometry import camera as cam_ops
 from ..geometry import se3, so3
 from ..geometry.se3 import SE3
-from ..ops import matching
+from ..ops import fundamental, initializer_ops, matching
 from ..optim import pose_gn
 from ..utils.device import resolve_device
 from . import dynamic as dynamic_mod
@@ -48,11 +51,6 @@ LOCAL_MAP_CAP = 4096
 NOT_INITIALIZED = "NOT_INITIALIZED"
 OK = "OK"
 LOST = "LOST"
-
-#: Where the host stereo and monocular entries are queued.
-HOST_SENSORS_TODO = ("the host stereo and monocular entries are not "
-                     "ported yet (ROADMAP.md queue 1, the host path's "
-                     "stereo and mono item)")
 
 
 class TrackStepResult(NamedTuple):
@@ -349,6 +347,15 @@ def step_rgbd(g, d, n, st, lids, lval, arena, gate, cfg: SystemConfig,
     return fused_step(fd, st, lids, lval, arena, gate, cfg)
 
 
+def step_stereo(gl, gr, n, st, lids, lval, arena, gate,
+                cfg: SystemConfig) -> StepOut:
+    """One stereo frame: extraction on both images, row-band matching for
+    depth, then ``fused_step``."""
+    fd = frame_mod.process_stereo(gl.to(torch.float32), gr.to(torch.float32),
+                                  cfg.camera, cfg.orb, n_features=n)
+    return fused_step(fd, st, lids, lval, arena, gate, cfg)
+
+
 def step_rgbd_dyn(g, d, n, st, dynst, boxes, lids, lval, arena, gate,
                   cfg: SystemConfig, generator=None, idx=None):
     """The fused dynamic-path frame: extraction masked by the previous
@@ -378,6 +385,28 @@ def run_track(fd, pose_pred: SE3, arena, ids, idv, radius,
 # --------------------------------------------------------------------- #
 # The host Tracker.
 # --------------------------------------------------------------------- #
+
+def _record_columns(fd: FrameData) -> torch.Tensor:
+    """A FrameData's per-keypoint fields as [N, 39] float32 columns (uv,
+    level, angle, depth, ur, valid, 32 descriptor bytes; levels, bytes and
+    flags are exact in float32)."""
+    f = fd.feats
+    return torch.cat([f.uv, f.level.to(torch.float32)[:, None],
+                      f.angle[:, None], fd.depth[:, None], fd.ur[:, None],
+                      f.valid.to(torch.float32)[:, None],
+                      f.desc.to(torch.float32)], dim=1)
+
+
+def _unpack_record(flo: np.ndarray) -> "FrameRecord":
+    """The host FrameRecord of ``_record_columns``' [N, >= 39] float32
+    block (no point ids yet)."""
+    return FrameRecord(
+        uv=np.ascontiguousarray(flo[:, 0:2]),
+        level=flo[:, 2].astype(np.int32), angle=flo[:, 3].copy(),
+        desc=flo[:, 7:39].astype(np.uint8), depth=flo[:, 4].copy(),
+        ur=flo[:, 5].copy(), valid=flo[:, 6] > 0.5,
+        point_ids=np.full(flo.shape[0], -1, np.int32))
+
 
 def _np_unproject_world(cam, uv: np.ndarray, depth: np.ndarray,
                         R_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:
@@ -446,17 +475,34 @@ class _FrameCtx:
 #: ``sampler(seed, valid) -> [256, 8]`` F-RANSAC sample indices of the
 #: dynamic step of the frame seeded ``seed``.
 Sampler = Callable[[int, torch.Tensor], torch.Tensor]
+#: ``init_sampler(seed, valid) -> (idx_h [200, 4], idx_f [200, 8])``: the
+#: monocular initializer's samples of the attempt seeded ``seed``.
+InitSampler = Callable[[int, torch.Tensor], tuple]
+
+
+def _read_bundle(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Device tensors as numpy arrays of their shapes, in ONE transfer
+    (flattened to float64: int64 indices and counts stay exact)."""
+    flat = torch.cat([t.reshape(-1).to(torch.float64)
+                      for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(tuple(t.shape)))
+        at += t.numel()
+    return out
 
 
 class Tracker:
-    """Host orchestration of tracking (RGB-D), on ``device`` (default
-    CUDA; no CPU fallback). ``pipelined = True`` finalizes frame i-1 after
-    dispatching frame i, ``finalize_batch`` frames at a time; the default
-    finalizes each frame synchronously. ``sampler`` injects the dynamic
-    step's F-RANSAC draws."""
+    """Host orchestration of tracking (RGB-D, stereo, monocular), on
+    ``device`` (default CUDA; no CPU fallback). ``pipelined = True``
+    finalizes frame i-1 after dispatching frame i, ``finalize_batch``
+    frames at a time; the default finalizes each frame synchronously.
+    ``sampler`` injects the dynamic step's F-RANSAC draws, ``init_sampler``
+    the monocular initializer's."""
 
     def __init__(self, cfg: SystemConfig, map_arena: Optional[MapArena] = None,
-                 device=None, sampler: Optional[Sampler] = None):
+                 device=None, sampler: Optional[Sampler] = None,
+                 init_sampler: Optional[InitSampler] = None):
         self.cfg = cfg
         self.device = resolve_device(device, "Tracker")
         self.map = map_arena if map_arena is not None else MapArena(cfg)
@@ -472,7 +518,11 @@ class Tracker:
         self.pipelined = False
         self.finalize_batch = 1
         self.sampler = sampler
+        self.init_sampler = init_sampler
         self._gen = torch.Generator(device=self.device)
+        self._mono_ref: Optional[FrameData] = None
+        self._mono_ref_stamp = 0.0
+        self.init_attempts: List[dict] = []   # monocular, as read
         self._consts = {}
         self._dev_state: Optional[DevTrackState] = None
         self._dyn_state: Optional[dynamic_mod.DynState] = None
@@ -552,6 +602,7 @@ class Tracker:
         self._dyn_state = None
         self._local_dev = None
         self._local_version = (-1, -1)
+        self._mono_ref = None
 
     @property
     def last_frame(self) -> Optional[FrameRecord]:
@@ -563,25 +614,36 @@ class Tracker:
             self._last_frame = rec._replace(point_ids=pids)
         return self._last_frame
 
+    @last_frame.setter
+    def last_frame(self, rec: Optional[FrameRecord]) -> None:
+        """Seed the frame the next one matches against (a checkpoint
+        resume); the device state is rebuilt from it."""
+        self._last_frame = rec
+        self._last_pids = None if rec is None \
+            else np.asarray(rec.point_ids, np.int32)
+        self._dev_state = None
+
     # ------------------------------------------------------------------ #
 
     def process_frame(self, gray, depth, stamp: float, dynamic_mask=None,
                       area_mode: bool = False, spawn_mask=None,
                       boxes_dev=None):
-        """Track one RGB-D frame. Returns (state_str, n_inliers).
+        """Track one RGB-D or monocular frame. Returns (state_str,
+        n_inliers).
 
-        ``depth``: [H, W] metres, or raw integer units scaled on the device.
+        ``depth``: [H, W] metres, or raw integer units scaled on the
+        device; None for monocular (a zero depth: no keypoint has depth).
         ``dynamic_mask``: optional [H, W] bool where keypoints are dropped.
         ``spawn_mask``: optional [H, W] bool where map points must not be
         created. ``boxes_dev``: optional [B, 4] device boxes — selects the
         fused dynamic path. In pipelined mode the result describes the
         newest finalized frame; call ``flush()`` after the last frame.
         """
-        if self.cfg.sensor == "monocular" or depth is None:
-            raise NotImplementedError(HOST_SENSORS_TODO)
         spawn = None if spawn_mask is None else np.asarray(spawn_mask)
         budget = self._const(int(self.state.budget), torch.int64)
-        g, d = self._up(gray), self._up(depth)
+        g = self._up(gray)
+        d = self._up(depth) if depth is not None else torch.zeros(
+            g.shape, dtype=torch.float32, device=self.device)
         if self.state.mode == NOT_INITIALIZED:
             self.flush()
             if dynamic_mask is not None:
@@ -591,7 +653,10 @@ class Tracker:
             else:
                 fd = frontend(g, d, budget, self.cfg)
             self._spawn_mask = spawn
-            n = self._initialize(fd, stamp)
+            if self.cfg.sensor == "monocular":
+                n = self._initialize_monocular(fd, stamp)
+            else:
+                n = self._initialize(fd, stamp)
             self._record_pose(stamp)
             return self.state.mode, n
         ctx = self._dispatch(g, d, budget, stamp, spawn, dynamic_mask,
@@ -599,7 +664,24 @@ class Tracker:
         return self._advance(ctx)
 
     def process_frame_stereo(self, gray_left, gray_right, stamp: float):
-        raise NotImplementedError(HOST_SENSORS_TODO)
+        """Track one rectified stereo pair: depth from row-band matching,
+        then the RGB-D tail. Returns (state_str, n_inliers)."""
+        budget = self._const(int(self.state.budget), torch.int64)
+        gl = self._up(gray_left).to(torch.float32)
+        gr = self._up(gray_right).to(torch.float32)
+        if self.state.mode == NOT_INITIALIZED:
+            self.flush()
+            fd = frame_mod.process_stereo(gl, gr, self.cfg.camera,
+                                          self.cfg.orb, n_features=budget)
+            self._spawn_mask = None
+            n = self._initialize(fd, stamp)
+            self._record_pose(stamp)
+            return self.state.mode, n
+        self._ensure_state()
+        lids, lval = self._refresh_local_map()
+        out = step_stereo(gl, gr, budget, self._dev_state, lids, lval,
+                          self._device_map(), self._gate_scale(), self.cfg)
+        return self._advance(self._post_dispatch(out, stamp, None))
 
     # ------------------------------------------------------------------ #
 
@@ -851,24 +933,14 @@ class Tracker:
 
     def _fetch_record(self, fd: FrameData, spawn_ok=None):
         """A device FrameData (and the dynamic path's spawn mask) as a host
-        FrameRecord, in ONE transfer: every field packed as float32 columns
-        (levels, descriptor bytes and flags are exact in float32)."""
-        f = fd.feats
-        cols = [f.uv, f.level.to(torch.float32)[:, None], f.angle[:, None],
-                fd.depth[:, None], fd.ur[:, None],
-                f.valid.to(torch.float32)[:, None], f.desc.to(torch.float32)]
+        FrameRecord, in ONE transfer."""
+        cols = _record_columns(fd)
         if spawn_ok is not None:
-            cols.append(spawn_ok.to(torch.float32)[:, None])
-        flo = torch.cat(cols, dim=1).cpu().numpy()
-        n = flo.shape[0]
-        rec = FrameRecord(
-            uv=np.ascontiguousarray(flo[:, 0:2]),
-            level=flo[:, 2].astype(np.int32), angle=flo[:, 3].copy(),
-            desc=flo[:, 7:39].astype(np.uint8), depth=flo[:, 4].copy(),
-            ur=flo[:, 5].copy(), valid=flo[:, 6] > 0.5,
-            point_ids=np.full(n, -1, np.int32))
+            cols = torch.cat([cols, spawn_ok.to(torch.float32)[:, None]],
+                             dim=1)
+        flo = cols.cpu().numpy()
         spawn_vec = flo[:, 39] > 0.5 if spawn_ok is not None else None
-        return rec, spawn_vec
+        return _unpack_record(flo), spawn_vec
 
     # ------------------------------------------------------------------ #
 
@@ -901,6 +973,113 @@ class Tracker:
         if self.on_keyframe:
             self.on_keyframe(kf)
         return n_feat
+
+    def _init_draws(self, seed: int, valid: torch.Tensor):
+        """The initializer's (idx_h, idx_f) samples of the attempt seeded
+        ``seed``: the injected ones, or the generator's."""
+        if self.init_sampler is not None:
+            return tuple(i.to(valid.device)
+                         for i in self.init_sampler(seed, valid))
+        n = self.cfg.ransac.init_iterations
+        gen = self._gen.manual_seed(seed)
+        return (fundamental.sample_indices(valid, n, gen, k=4),
+                fundamental.sample_indices(valid, n, gen, k=8))
+
+    def _initialize_monocular(self, fd: FrameData, stamp: float) -> int:
+        """Two-view monocular initialisation: hold a reference frame with
+        more than 100 keypoints, match each next frame to it in a wide
+        window, run the H/F initializer, and build the map from the
+        triangulated points with the median depth scaled to 1 (the first
+        keyframe at identity, the second at the recovered pose). An
+        attempt reads its match count (a stale reference, with fewer than
+        100 matches, is dropped before the initializer runs, as in the
+        reference), then the initializer's result with both frames'
+        records in one more transfer."""
+        cfg = self.cfg
+        n_feat = int(fd.feats.valid.sum())
+        if self._mono_ref is None:
+            if n_feat > 100:
+                self._mono_ref = fd
+                self._mono_ref_stamp = stamp
+            return n_feat
+        if n_feat <= 100:
+            self._mono_ref = None
+            return n_feat
+
+        ref = self._mono_ref
+        d = matching.hamming_matrix(ref.feats.signed_desc(),
+                                    fd.feats.signed_desc())
+        d = d + matching.window_penalty(ref.feats.uv, fd.feats.uv,
+                                        cfg.matcher.radius_init)
+        res = matching.match(d, max_distance=cfg.matcher.th_low,
+                             ratio=cfg.matcher.nn_ratio_init, mutual=True,
+                             row_valid=ref.feats.valid,
+                             col_valid=fd.feats.valid)
+        n_match = int(res.valid.sum())
+        if n_match < 100:
+            self._mono_ref = None       # the reference is stale: restart
+            return n_feat
+        uv2 = fd.feats.uv[torch.clamp(res.idx, min=0)]
+        idx_h, idx_f = self._init_draws(int(stamp * 1e4) & 0x7fffffff,
+                                        res.valid)
+        rr = initializer_ops.reconstruct_graph(
+            ref.feats.uv, uv2, res.valid, cfg.camera, idx_h, idx_f,
+            n_hypotheses=cfg.ransac.init_iterations,
+            sigma=cfg.ransac.init_sigma)
+        (ok, use_h, R2, t2, good, X, idx2, ref_cols,
+         cur_cols) = _read_bundle([
+             rr.ok, rr.used_homography, rr.R, rr.t, rr.good, rr.points,
+             res.idx, _record_columns(ref), _record_columns(fd)])
+        self.init_attempts.append(dict(
+            stamp=stamp, matches=n_match, ok=bool(ok),
+            homography=bool(use_h), good=int(good.sum())))
+        if not ok:
+            return n_feat
+
+        good = good > 0.5
+        X = X.astype(np.float32)
+        med = float(np.median(X[good][:, 2]))
+        if med <= 0:
+            return n_feat
+        X = X / med
+        t2 = (t2.astype(np.float32) / med).astype(np.float32)
+        R2 = R2.astype(np.float32)
+        ref_rec = _unpack_record(ref_cols.astype(np.float32))
+        cur_rec = _unpack_record(cur_cols.astype(np.float32))
+
+        # The first keyframe at identity.
+        ids = self.map.add_points(X[good], ref_rec.desc[good], first_kf=0,
+                                  angles=ref_rec.angle[good])
+        pids1 = np.full(ref_rec.uv.shape[0], -1, np.int32)
+        pids1[np.nonzero(good)[0][ids >= 0]] = ids[ids >= 0]
+        kf1 = self.map.add_keyframe(
+            np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+            self._mono_ref_stamp, ref_rec.uv, ref_rec.level, ref_rec.angle,
+            ref_rec.desc, ref_rec.depth, ref_rec.ur, ref_rec.valid, pids1)
+        # The second at the recovered pose.
+        idx2 = idx2.astype(np.int64)
+        pids2 = np.full(cur_rec.uv.shape[0], -1, np.int32)
+        pids2[idx2[np.nonzero(good)[0][ids >= 0]]] = ids[ids >= 0]
+        kf2 = self.map.add_keyframe(
+            R2, t2, stamp, cur_rec.uv, cur_rec.level, cur_rec.angle,
+            cur_rec.desc, cur_rec.depth, cur_rec.ur, cur_rec.valid, pids2)
+        self.map.update_point_stats(ids[ids >= 0])
+
+        self.state.pose_R, self.state.pose_t = R2, t2
+        self._last_frame = cur_rec._replace(point_ids=pids2)
+        self._last_pids = pids2
+        self.ref_kf = kf2
+        self.state.last_kf = kf2
+        self.state.frames_since_kf = 0
+        self.state.mode = OK
+        self._mono_ref = None
+        self._dev_state = None
+        if self.on_keyframe:
+            self.on_keyframe(kf1)
+            self.on_keyframe(kf2)
+            self.state.pose_R = self.map.kf_R[kf2].copy()
+            self.state.pose_t = self.map.kf_t[kf2].copy()
+        return int(n_match)
 
     # ------------------------------------------------------------------ #
 

@@ -2,13 +2,16 @@
 
 Run from the repository root:
 
-    python3 cpu_reference.py jax {orbit,circuit,kidnap,selfdetect,stereo,mono}
+    python3 cpu_reference.py jax {orbit,circuit,kidnap,selfdetect}
+    python3 cpu_reference.py {jax,port} {stereo,mono} [N]
     python3 cpu_reference.py jax refine {orbit,circuit}
-    python3 cpu_reference.py port {circuit,kidnap,selfdetect,stereo,mono}
+    python3 cpu_reference.py port {circuit,kidnap,selfdetect}
     python3 cpu_reference.py port refine circuit
     python3 cpu_reference.py {jax,port} host-replica
     python3 cpu_reference.py {jax,port} {host-loop,host-reloc}
     python3 cpu_reference.py {jax,port} {host-loop-full,host-reloc-full}
+    python3 cpu_reference.py {jax,port} {host-stereo,host-mono,host-flow}
+    python3 cpu_reference.py {jax,port} {host-stereo,host-mono,host-flow}-full
 
 Drives one package on the CPU over one scene at the configuration of the
 matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
@@ -31,6 +34,8 @@ matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
   the first tracked frame, frames lost after it, the Sim3-aligned ATE over
   the tracked frames, keyframes, and each initialisation attempt (whether
   it succeeded, H or F, the points triangulated).
+- ``stereo N``, ``mono N``: the first N frames of either scene (the cut
+  ``chip_smoke.py`` makes when the script runs long).
 - ``host-replica`` ([13]): the host-orchestrated ``System(SystemConfig())``
   (synchronous, no vocabulary, no detector) over the first N_HOST frames of
   the 400-frame TUM replica with the walker's boxes (the JAX package
@@ -54,6 +59,17 @@ matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
 - ``host-loop-full``, ``host-reloc-full``: the same two at OrbConfig()'s
   full width (2048 keypoints, 8 levels). These runs are why [14] keeps the
   tests' cut: at full width the JAX package misses a gate of each.
+- ``host-stereo``, ``host-mono``, ``host-flow`` ([15a]-[15c],
+  ``host_sensor_scenes.py``): the host ``System``'s ``track_stereo`` on
+  the stereo room's 40 frames, ``track_monocular(vocabulary=)`` through
+  the monocular kidnap, and ``track_rgbd`` with the flow motion check on
+  the walker scene, at the tests' ORB cut (1024 keypoints, 4 levels);
+  with ``-full`` at the width ``chip_smoke.py`` runs them
+  (``SystemConfig(sensor="stereo")``, the mono test's configuration with
+  ``OrbConfig()``, ``SystemConfig()`` with the flow check). Each prints
+  its gates' numbers and the failed gates; mono adds the initialisation
+  attempts and the relocalize calls, flow the frames on which the
+  walker's box was dynamic.
 - ``refine orbit|circuit`` ([10]): the session of [4] or [6], then the
   handoff (``to_arena``), global BA and ``refined_trajectory``: the
   arena's keyframes and points, the observations cut (``truncated_obs``),
@@ -78,6 +94,15 @@ from chip_smoke import (CIRCUIT_LIMITS, DETECT_EVERY, HOST_SCHEDULE,
                         mono_summary, refine_report, replica_host_frames,
                         run_host, stereo_blurred, stereo_config, stereo_scene,
                         walker_detector)
+from host_sensor_scenes import (
+    HOST_FLOW_ORBIT, HOST_FLOW_WALKER, HOST_MONO_ORBIT, HOST_MONO_RETURN,
+    HOST_MONO_TRACK,
+    HOST_MONO_VOCAB, HOST_MONO_VOCAB_FRAMES, HOST_STEREO_ORBIT,
+    N_HOST_FLOW, pose_centres, host_flow_config, host_flow_failures,
+    host_flow_frames, host_flow_summary, host_mono_config,
+    host_mono_failures, host_stereo_config, host_stereo_failures,
+    host_stereo_frames, host_stereo_summary, run_host_flow, run_host_mono,
+    run_host_stereo)
 from host_bow_scenes import (HOST_LOOP_VOCAB, HOST_LOOP_VOCAB_FRAMES,
                              HOST_RELOC_ORBIT, HOST_RELOC_RETURN,
                              HOST_RELOC_VOCAB, HOST_RELOC_VOCAB_FRAMES,
@@ -343,9 +368,151 @@ def run_host_bow(pkg, scene):
     return out
 
 
-def run_jax_sensor(scene):
+def run_host_sensor(pkg, scene):
+    """[15a]-[15c] (``host-stereo``, ``host-mono``, ``host-flow``) on
+    either package, at the tests' ORB cut or, with ``-full``, at the width
+    chip_smoke.py runs."""
+    kind = scene.split("-")[1]
+    full = scene.endswith("-full")
+    if pkg == "jax":
+        import jax
+        import jax.numpy as jnp
+        from coebslam_tpu import config
+        from coebslam_tpu.eval import ate
+        from coebslam_tpu.ops import extractor, initializer_ops
+        from coebslam_tpu.slam import frame as frame_mod
+        from coebslam_tpu.slam import vocabulary as voc_mod
+        from coebslam_tpu.slam.system import System
+        from coebslam_tpu.utils import synthetic
+        planes = synthetic.make_room(seed=0)
+        asarray = jnp.asarray
+        make = System
+
+        def depth_free(sysm, g):
+            fd = frame_mod.process_rgbd(g, jnp.zeros_like(g), cfg.camera,
+                                        cfg.orb)
+            return fd, np.asarray(voc_mod.transform_words(
+                sysm.voc, fd.feats.desc, fd.feats.valid)[0])
+    else:
+        import torch
+        from coebslam_tpu_torch import config
+        from coebslam_tpu_torch.eval import ate
+        from coebslam_tpu_torch.ops import extractor, initializer_ops
+        from coebslam_tpu_torch.slam import frame as frame_mod
+        from coebslam_tpu_torch.slam import vocabulary as voc_mod
+        from coebslam_tpu_torch.slam.system import System
+        from coebslam_tpu_torch.utils import synthetic
+        planes = synthetic.make_room(seed=0, device="cpu")
+        asarray = torch.from_numpy
+        make = lambda cfg, **kw: System(cfg, device="cpu", **kw)
+
+        def depth_free(sysm, g):
+            fd = frame_mod.process_rgbd(g, torch.zeros_like(g), cfg.camera,
+                                        cfg.orb)
+            return fd, sysm._words(fd.feats.desc, fd.feats.valid)
+    cfg = {"stereo": host_stereo_config, "mono": host_mono_config,
+           "flow": host_flow_config}[kind](config, full)
+    grey = lambda p: synthetic.render(cfg.camera, p, planes)[0]
+    t0 = time.time()
+    out = {}
+    if kind == "stereo":
+        poses = synthetic.camera_trajectory(**HOST_STEREO_ORBIT)
+        frames = host_stereo_frames(grey, poses, cfg.camera, asarray)
+        sysm = make(cfg)
+        out.update(host_stereo_summary(sysm, run_host_stereo(sysm, frames),
+                                       pose_centres(poses), ate))
+        out["failed"] = host_stereo_failures(out)
+    elif kind == "mono":
+        poses = synthetic.camera_trajectory(**HOST_MONO_ORBIT)[
+            :HOST_MONO_TRACK]
+        frames = [grey(p) for p in poses]
+        extract = lambda g: extractor.extract(g, cfg.orb)
+        if pkg == "jax":
+            extract = jax.jit(extract)
+        descs = []
+        for i in HOST_MONO_VOCAB_FRAMES:
+            f = extract(frames[i])
+            descs.append(np.asarray(f.desc)[np.asarray(f.valid)])
+        voc = scene_vocabulary(voc_mod, descs, **HOST_MONO_VOCAB)
+        sysm = make(cfg, vocabulary=voc)
+        # The port's host initialisation runs the JAX ``reconstruct``'s
+        # counterpart, ``reconstruct_graph``.
+        fit_name = "reconstruct" if pkg == "jax" else "reconstruct_graph"
+        attempts, orig = [], getattr(initializer_ops, fit_name)
+
+        def logged(*a, **kw):
+            r = orig(*a, **kw)
+            attempts.append({"ok": bool(r.ok),
+                             "homography": bool(r.used_homography),
+                             "good": int(r.good.sum())})
+            return r
+
+        setattr(initializer_ops, fit_name, logged)
+        rec = watch_calls([], sysm.relocalizer,
+                          RELOC_ATTEMPTS[pkg] + ("relocalize",))
+        try:
+            out.update(run_host_mono(sysm, frames, frames[0] * 0,
+                                     pose_centres(poses), ate))
+        finally:
+            setattr(initializer_ops, fit_name, orig)
+        keys = ("ok", "n_inliers", "ms", "candidates_tried", "branch")
+        out.update(voc_words=int(voc.n_words), init_attempts=attempts,
+                   reloc=[{k: c[k] for k in keys} for c in reloc_calls(rec)])
+        # The Relocalizer on the return frame, against frame 12's own
+        # earlier pose: its EPnP branch (no depth).
+        del rec[:]
+        _, R12, t12 = sysm.tracker.trajectory[HOST_MONO_RETURN]
+        direct = reloc_direct(sysm, *depth_free(sysm, frames[
+            HOST_MONO_RETURN]), np.asarray(R12), np.asarray(t12))
+        direct.update({k: reloc_calls(rec)[0][k] for k in keys[2:]})
+        out.update(direct_epnp=direct, failed=host_mono_failures(out))
+    else:
+        quad = synthetic.make_walker(**HOST_FLOW_WALKER, **(
+            {} if pkg == "jax" else {"device": "cpu"}))
+        poses = synthetic.camera_trajectory(**HOST_FLOW_ORBIT)[:N_HOST_FLOW]
+        if pkg == "jax":
+            render = jax.jit(lambda p, i: synthetic.render(
+                cfg.camera, p, planes, quad, i)[:3])
+            frames = host_flow_frames(
+                lambda p, i: render(p, jnp.asarray(i, jnp.float32)), poses)
+        else:
+            frames = host_flow_frames(lambda p, i: synthetic.render(
+                cfg.camera, p, planes, quad, i)[:3], poses)
+        sysm = make(cfg)
+        flags = []
+        if pkg == "jax":
+            orig = sysm._jit_dynamic
+
+            def kept(*a):
+                r = orig(*a)
+                flags.append(bool(r.box_dynamic[0]))
+                return r
+
+            sysm._jit_dynamic = kept
+        else:
+            orig = sysm._flow_check
+
+            def kept(*a):
+                r = orig(*a)
+                flags.append(bool(r.box_dynamic[0]))
+                return r
+
+            sysm._flow_check = kept
+        states = run_host_flow(sysm, frames)
+        # The first frame has no previous image: the k-th check is on
+        # frame k.
+        out.update(host_flow_summary(
+            sysm, states, pose_centres(poses), ate,
+            [k + 1 for k, f in enumerate(flags) if f]))
+        out["failed"] = host_flow_failures(out)
+    out.update(track_s=time.time() - t0, full=full)
+    return out
+
+
+def run_jax_sensor(scene, n=None):
     """[11] or [12] on the JAX package: the scene of tests/test_stereo_wide.py
-    or tests/test_realtime_mono.py at full width."""
+    or tests/test_realtime_mono.py at full width (its first ``n``
+    frames)."""
     import jax
     import jax.numpy as jnp
     from coebslam_tpu import config
@@ -357,7 +524,7 @@ def run_jax_sensor(scene):
     planes = synthetic.make_room(seed=0)
     if scene == "mono":
         cfg = mono_config(config)
-        poses = synthetic.camera_trajectory(N_MONO, radius=MONO_RADIUS)
+        poses = synthetic.camera_trajectory(N_MONO, radius=MONO_RADIUS)[:n]
         render = jax.jit(lambda p: synthetic.render(cfg.camera, p, planes)[0])
         attempts = []
         orig = initializer_ops.reconstruct_graph
@@ -377,7 +544,7 @@ def run_jax_sensor(scene):
     else:
         cfg = stereo_config(config)
         walker = synthetic.make_walker(**STEREO_WALKER)
-        poses = replica.walking_trajectory(N_STEREO, seed=3)
+        poses = replica.walking_trajectory(N_STEREO, seed=3)[:n]
         b = cfg.camera.baseline
         render = jax.jit(lambda p, i: synthetic.render(
             cfg.camera, p, planes, walker, i)[:3])
@@ -403,7 +570,7 @@ def run_jax_sensor(scene):
     return out
 
 
-def run_jax(scene, refine):
+def run_jax(scene, refine, n=None):
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
@@ -411,8 +578,10 @@ def run_jax(scene, refine):
         return run_host_replica("jax")
     if scene.startswith(("host-loop", "host-reloc")):
         return run_host_bow("jax", scene)
+    if scene.startswith(("host-stereo", "host-mono", "host-flow")):
+        return run_host_sensor("jax", scene)
     if scene in ("stereo", "mono"):
-        return run_jax_sensor(scene)
+        return run_jax_sensor(scene, n)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from coebslam_tpu import config
     from coebslam_tpu.config import SystemConfig
@@ -488,7 +657,7 @@ def run_jax(scene, refine):
                     {"orbit": 0, "circuit": 8, "kidnap": 5}[scene])
 
 
-def run_port(scene, refine):
+def run_port(scene, refine, n=None):
     sys.path.insert(0, ROOT)
     import torch
     from coebslam_tpu_torch import config
@@ -502,17 +671,19 @@ def run_port(scene, refine):
         return run_host_replica("port")
     if scene.startswith(("host-loop", "host-reloc")):
         return run_host_bow("port", scene)
+    if scene.startswith(("host-stereo", "host-mono", "host-flow")):
+        return run_host_sensor("port", scene)
     if scene == "stereo":
         cfg = stereo_config(config)
         frames, gt = stereo_scene(torch, synthetic, replica, cfg.camera,
-                                  "cpu")
+                                  "cpu", n or N_STEREO)
         rt = RealtimeSlam(cfg, device="cpu")
         for i, (gl, gr, b) in enumerate(frames):
             rt.track_stereo(gl, gr, stamp=i / 30.0, boxes=b)
         return _sensor_summary(rt.finish(), gt, ate, False)
     if scene == "mono":
         cfg = mono_config(config)
-        frames, gt = mono_scene(synthetic, cfg.camera, "cpu")
+        frames, gt = mono_scene(synthetic, cfg.camera, "cpu", n or N_MONO)
         rt = RealtimeSlam(cfg, device="cpu")
         for i, g in enumerate(frames):
             rt.track_mono(g, stamp=i / 30.0)
@@ -563,19 +734,25 @@ def main():
     refine = len(args) == 3 and args[1] == "refine"
     if refine:
         args = [args[0], args[2]]
+    n = None
+    if len(args) == 3 and args[1] in ("stereo", "mono") \
+            and args[2].isdigit():
+        n = int(args.pop())
     if len(args) != 2:
         sys.exit(__doc__)
     pkg, scene = args
     scenes = ("orbit", "circuit") if refine else (
         "orbit", "circuit", "kidnap", "selfdetect", "stereo", "mono",
         "host-replica", "host-loop", "host-reloc", "host-loop-full",
-        "host-reloc-full")
+        "host-reloc-full") + tuple(
+            f"host-{k}{f}" for k in ("stereo", "mono", "flow")
+            for f in ("", "-full"))
     if pkg not in ("jax", "port") or scene not in scenes \
             or (pkg, scene) == ("port", "orbit"):
         sys.exit(__doc__)
     t0 = time.time()
-    out = (run_jax if pkg == "jax" else run_port)(scene, refine)
-    out.update(package=pkg, scene=scene, refine=refine,
+    out = (run_jax if pkg == "jax" else run_port)(scene, refine, n)
+    out.update(package=pkg, scene=scene, refine=refine, n_frames=n,
                seconds=time.time() - t0)
     print(json.dumps(out))
 

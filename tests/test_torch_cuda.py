@@ -1,9 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels against
 their plain PyTorch versions, and the maintenance program, the detector,
 the global BA, the stereo frame, the two-view initializer, the host
-System, RANSAC EPnP and the Sim3 refinement against their CPU runs, on
-the card. Without a card
-they skip.
+System, RANSAC EPnP, the Sim3 refinement and the LK flow motion check
+against their CPU runs, on the card. Without a card they skip.
 
 They import neither JAX nor the JAX package, so they also run on a machine
 that has only PyTorch (``--noconftest`` skips the JAX set-up of
@@ -510,3 +509,49 @@ def test_epnp_and_sim3_on_card_match_cpu(card):
     assert torch.equal(g.inliers.cpu(), c.inliers) and int(c.n_inliers) > 250
     for a, b in zip(g.S12, c.S12):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+
+
+def test_lk_flow_and_dynamic_frontend_on_card_match_cpu(card):
+    """The flow motion check at full width on a pair of the walker scene
+    (host_sensor_scenes.py, frames 12 and 13): good_features and lk_flow
+    on the card against the CPU (valid equal, corners within 1e-3 px,
+    tracked points within 1e-2 px), and dynamic_frontend with the same
+    F-RANSAC samples (drawn on the CPU): mask, box flags and T_M equal."""
+    from host_sensor_scenes import (HOST_FLOW_ORBIT, HOST_FLOW_WALKER,
+                                    host_flow_config)
+    from coebslam_tpu_torch import config
+    from coebslam_tpu_torch.ops import fundamental, lk_flow
+    from coebslam_tpu_torch.slam import dynamic
+    cfg = host_flow_config(config)
+    planes = synthetic.make_room(seed=0, device=card)
+    quad = synthetic.make_walker(**HOST_FLOW_WALKER, device=card)
+    poses = synthetic.camera_trajectory(**HOST_FLOW_ORBIT)
+    g0, _, _, _ = synthetic.render(cfg.camera, poses[12], planes, quad, 12)
+    g1, _, b1, _ = synthetic.render(cfg.camera, poses[13], planes, quad, 13)
+    boxes = torch.full((cfg.dynamic.max_boxes, 4), -1.0, device=card)
+    boxes[0] = b1
+    n = cfg.dynamic.n_flow_points
+    (ug, vg), (uc, vc) = (lk_flow.good_features(g0.to(d), n)
+                          for d in (card, "cpu"))
+    assert torch.equal(vg.cpu(), vc) and int(vc.sum()) > 300
+    assert float((ug.cpu() - uc).abs().max()) < 1e-3
+    fg = lk_flow.lk_flow(lk_flow.build_flow_pyramid(g0),
+                         lk_flow.build_flow_pyramid(g1), uc.to(card))
+    fc = lk_flow.lk_flow(lk_flow.build_flow_pyramid(g0.cpu()),
+                         lk_flow.build_flow_pyramid(g1.cpu()), uc)
+    assert torch.equal(fg.valid.cpu(), fc.valid)
+    ok = fc.valid & vc
+    assert float((fg.points.cpu() - fc.points)[ok].abs().max()) < 1e-2
+
+    def draw(valid):
+        return fundamental.sample_indices(
+            valid.cpu(), cfg.dynamic.f_ransac_iters,
+            torch.Generator().manual_seed(0)).to(valid.device)
+
+    rg = dynamic.dynamic_frontend(g0, g1, boxes, cfg, idx=draw)
+    rc = dynamic.dynamic_frontend(g0.cpu(), g1.cpu(), boxes.cpu(), cfg,
+                                  idx=draw)
+    for f in ("mask", "area_flag", "box_dynamic", "box_blurred",
+              "outlier_valid"):
+        assert torch.equal(getattr(rg, f).cpu(), getattr(rc, f)), f
+    assert int(rc.n_outliers) > 0

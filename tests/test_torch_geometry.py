@@ -151,9 +151,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "io/trajectory.py", "utils/metrics.py", "ops/pnp.py",
                 "optim/sim3_opt.py", "slam/keyframe_db.py",
                 "slam/relocalization.py", "slam/loop_closing.py",
-                "slam/vocabulary.py"):
+                "slam/vocabulary.py", "ops/lk_flow.py", "io/checkpoint.py"):
         assert ROOT / "coebslam_tpu_torch" / new in files
-    files += [ROOT / "chip_smoke.py", ROOT / "host_bow_scenes.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "host_bow_scenes.py",
+              ROOT / "host_sensor_scenes.py"]
     pat = re.compile(r"^\s*(import|from)\s+(jax\b|coebslam_tpu\b(?!_torch))",
                      re.M)
     bad = [str(f) for f in files if pat.search(f.read_text())]

@@ -5,8 +5,7 @@ initialisation on, with the reference's F-RANSAC draws injected through
 ``System(sampler=)`` (a torch generator cannot reproduce ``jax.random``);
 held frame by frame by the rules of ``tests/test_torch_host_tracking.py``.
 Also the trajectory writers, localization mode, the reset after an early
-loss, the wiring of the BoW half (``vocabulary=``), the entries that are
-not ported yet, and the device default."""
+loss and the wiring of the BoW half (``vocabulary=``)."""
 import dataclasses
 import os
 
@@ -182,16 +181,3 @@ def test_vocabulary_wires_the_bow_half():
     assert ts.kf_db.registered.sum() == ts.map.n_kf >= 1
     bare = tsys.System(tc, device="cpu")
     assert (bare.kf_db, bare.relocalizer, bare.loop_closer) == (None,) * 3
-
-
-@pytest.mark.parametrize("call", [
-    lambda c: tsys.System(c.replace(dynamic=dataclasses.replace(
-        c.dynamic, motion_check="flow")), device="cpu"),
-    lambda c: tsys.System(c, device="cpu").track_stereo(None, None, 0.0),
-    lambda c: tsys.System(c, device="cpu").track_monocular(None, 0.0),
-    lambda c: tsys.System(c, device="cpu").tracker.process_frame_stereo(
-        None, None, 0.0),
-], ids=["flow", "stereo", "monocular", "tracker_stereo"])
-def test_entries_not_ported_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call(tcfg.SystemConfig())
