@@ -73,16 +73,18 @@ Phases (each one failing the run with a non-zero exit when it fails):
      The orbit's refined keyframe ATE < 2 cm; the circuit's refined
      trajectory below its realtime ATE and under 12 cm.
  11. Stereo at full width (tests/test_stereo_wide.py's scene without its
-     4-level / 1024-keypoint cut): RealtimeSlam.track_stereo over 120
-     rendered left/right pairs of the walking trajectory, baseline 0.30 m
+     4-level / 1024-keypoint cut): RealtimeSlam.track_stereo over the first
+     60 of its 120 rendered left/right pairs of the walking trajectory (the
+     script's time; cpu_reference.py jax stereo 60), baseline 0.30 m
      (bf 160), the walker and its ground-truth boxes, frames 40-51
      box-blurred; SystemConfig(sensor="stereo") with ORB and RTLimits at
-     their defaults. >= 115/120 frames tracked, ATE < 5 cm, and the kernel
+     their defaults. >= 55/60 frames tracked, ATE < 5 cm, and the kernel
      launched twice per frame (left and right). Prints keyframes, live
      points, fps, host syncs per frame and peak device memory.
  12. Monocular at full width (tests/test_realtime_mono.py's scene without
-     its cut): RealtimeSlam.track_mono over 60 frames of a 0.8 m orbit of
-     the room. Initialised by frame 10, at most 3 frames lost after it, at
+     its cut): RealtimeSlam.track_mono over the first 30 of the 60 frames
+     of a 0.8 m orbit of the room (the script's time; cpu_reference.py jax
+     mono 30). Initialised by frame 10, at most 3 frames lost after it, at
      least 3 keyframes, Sim3-aligned ATE < 5 cm, one kernel launch per
      frame. Prints the initialising frame, H or F, the points triangulated,
      the time of one initialisation attempt (CUDA events around one
@@ -91,13 +93,16 @@ Phases (each one failing the run with a non-zero exit when it fails):
  13. The host-orchestrated System (slam/system.py: Tracker + LocalMapper,
      synchronous mapping, no vocabulary, no detector; SystemConfig() at full
      width) on the first 60 frames of the 400-frame TUM replica (seed 0),
-     rendered on the card in the wire's quantisation (depth d16 / 5000),
-     with the walker's boxes through the text format. At most 5 frames
-     lost, ATE < 8 cm (tests/test_tum_replica.py::test_host_path_ate's
-     gates) and one FAST launch per frame. Prints keyframes, live points,
-     local BAs, culled keyframes and points, host syncs per frame, fps with
-     the card drained at the end, the mapper's stage ms and peak device
-     memory (profile_host.py runs this phase alone, and in realtime mode).
+     which [16a] wrote as TUM files, fed by the offline driver
+     (examples/run_tum_rgbd.run, host mode, --boxes: io/tum.load_frame,
+     depth d16 / 5000, the walker's boxes looked up within 0.03 s). At
+     most 5 frames lost, ATE < 8 cm (tests/test_tum_replica.py::
+     test_host_path_ate's gates) and one FAST launch per frame. Prints
+     keyframes, live points, local BAs, culled keyframes and points, host
+     syncs per frame, fps (the whole run with PNG decoding, the card
+     drained at the end; and the driver's track_rgbd time), the mapper's
+     stage ms and peak device memory (profile_host.py runs this phase alone
+     on in-memory frames, and in realtime mode).
  14. The host path's BoW half, System(vocabulary=) with the scene's own
      vocabulary (slam/vocabulary.train on descriptors extracted on the
      card), synchronous:
@@ -151,8 +156,30 @@ Phases (each one failing the run with a non-zero exit when it fails):
      d. [13]'s map checkpointed (io/checkpoint.py), loaded into a new
         System in localization mode, and [13]'s last frame tracked: OK
         with > 100 inliers, no keyframe added.
-Each of [4] and [6]-[15] prints the JAX package's result on the CPU for the
-same scene and configuration beside its own, and the peak device memory.
+ 16. The file-based entry points (PNG through io/png.py, no PIL):
+     a. replica.write: [13]'s 60 frames rendered on the card and written as
+        a TUM sequence (seconds, MiB); frames 0 and 59 decode to
+        replica.generate's arrays exactly.
+     b. [13]'s CameraTrajectory.txt and KeyFrameTrajectory.txt read back
+        (io/trajectory.load_tum: a row per frame and per keyframe) and
+        their RPE against the ground truth (eval/rpe).
+     c. run_tum_rgbd --realtime --refine --boxes on the same files:
+        frames OK >= 55, ATE < 8 cm, refined ATE < 1.5 cm and below the
+        raw ATE (tests/test_tum_replica.py's gates, which the JAX package
+        passes on these 60 frames on the CPU), one FAST launch per frame;
+        fps, the keyframes optimised, peak device memory.
+     d. run_stereo kitti and run_mono euroc on tests/test_example_drivers.py's
+        6 frames, rendered on the card and written as PNGs: the
+        trajectories written (6 KITTI rows), a frame tracked by the stereo
+        driver, FAST launches 12 and 6.
+     e. artifacts/vocab_1e5.npz through save_orbvoc_text and
+        load_orbvoc_text: every array equal, and [4]'s first frame's words
+        equal before and after; seconds each way and MiB.
+     f. tools/train_vocab --frames 24 --depth 3: 24 FAST launches, the
+        words, seconds, and vocabulary.load of its output.
+Each of [4], [6]-[15] and [16c] prints the JAX package's result on the CPU
+for the same scene and configuration beside its own, and the peak device
+memory.
 Each phase prints its seconds.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
@@ -163,6 +190,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -226,10 +254,10 @@ JAX_CPU_REFINE = {
                     ate_refined_m=0.062603),
 }
 REFINED_KF_ATE_LIMIT_M = 0.02    # tests/test_handoff.py
-# [11] and [12] (cpu_reference.py jax stereo|mono).
-JAX_CPU_STEREO = dict(ok=120, ate_m=0.009160, n_kf=12, live_points=2251)
-JAX_CPU_MONO = dict(first_ok=1, lost_after=0, ok=59, ate_sim3_m=0.008167,
-                    n_kf=13, init="frame 1, homography, 602 triangulated")
+# [11] and [12] (cpu_reference.py jax stereo 60, jax mono 30).
+JAX_CPU_STEREO = dict(ok=60, ate_m=0.010027, n_kf=6, live_points=1403)
+JAX_CPU_MONO = dict(first_ok=1, lost_after=0, ok=29, ate_sim3_m=0.009519,
+                    n_kf=7, init="frame 1, homography, 602 triangulated")
 MEM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 L2_FLUSH_BYTES = 128 << 20   # written before a cold call: over twice the L2
@@ -250,15 +278,21 @@ DETECT_EVERY = 3
 # width): bf 160 (baseline 0.30 m), the walking trajectory, the walker and
 # its boxes, frames [40, 52) box-blurred with a 9-px kernel.
 N_STEREO = 120
+# The script's cut, for its time: its first 60 frames,
+# which hold the blur window.
+N_STEREO_RUN = 60
 STEREO_BF = 160.0
 STEREO_WALKER = dict(seed=1, start=(-1.0, -0.25, 1.8),
                      velocity=(0.011, 0.004, 0.0), half_w=0.28, half_h=0.62)
 STEREO_BLUR = (40, 52, 9)
-STEREO_MIN_OK = N_STEREO - 5
+STEREO_MIN_OK = N_STEREO_RUN - 5
 STEREO_ATE_LIMIT_M = 0.05
 # [12]: monocular (tests/test_realtime_mono.py at full width): the room
 # without the walker, a 0.8 m orbit for initialisation parallax.
 N_MONO = 60
+# The script's cut, for its time: the first 30 frames, the
+# initialisation on frame 1 and the tracking after it.
+N_MONO_RUN = 30
 MONO_RADIUS = 0.8
 MONO_FIRST_OK_MAX = 10
 MONO_MAX_LOST_AFTER = 3
@@ -275,6 +309,18 @@ JAX_CPU_HOST = dict(ok=60, lost=0, ate_m=0.002227, n_kf=9, live_points=811,
                     local_ba=11, culled_kf=4, culled_pt=825)
 # The JAX package on the CPU, same scenes and configurations
 # (cpu_reference.py jax host-loop|host-reloc).
+# [16]: the file-based entry points.
+N_EXAMPLE = 6                    # tests/test_example_drivers.py's frames
+EXAMPLE_LAUNCHES = dict(stereo=2 * N_EXAMPLE, mono=N_EXAMPLE)
+VOCAB_TRAIN = dict(frames=24, depth=3)
+# [16c]: run_tum_rgbd --realtime --refine on the first N_HOST files
+# (cpu_reference.py jax driver-rt), and tests/test_tum_replica.py's gates,
+# which the JAX package passes there.
+JAX_CPU_DRIVER_RT = dict(ok=60, ate_m=0.004730, n_kf=6, n_opt=6,
+                         refined_ate_m=0.003918)
+DRIVER_RT_MIN_OK = N_HOST - 5
+DRIVER_RT_ATE_LIMIT_M = 0.08
+DRIVER_RT_REFINED_LIMIT_M = 0.015
 JAX_CPU_HOST_LOOP = dict(ok=110, loops=1, closed_at=94, loop_edge=(36, 5),
                          fused_edges=30, ate_pre_m=0.064488,
                          ate_post_m=0.044864, n_kf=41)
@@ -641,23 +687,91 @@ def host_summary(sysm, states, gt_stamps, gt, ate):
     return out
 
 
-def host_phase(torch, fast_cuda, sysm, frames, gt, ate):
-    """[13]'s run on the card: FAST launches and host syncs counted over
-    the frames, the card drained at the end. Returns (launches, syncs,
-    sync sites, seconds, peak MiB, host_summary, mapper stage ms)."""
+def driver_summary(out):
+    """The gates' numbers of an offline-driver run (``run_tum_rgbd.run``'s
+    dict, or cpu_reference.py's like one from the JAX package): frames,
+    ATE and keyframes; host mode frames OK and lost and live points;
+    realtime mode frames OK and, refined, the keyframes optimised and
+    the refined ATE."""
+    nan = float("nan")
+    s = {"n": out["n"],
+         "ate_m": float(out["ate"]["rmse"]) if out["ate"] else nan}
+    if out["mode"] == "host":
+        states, m = out["states"], out["system"].map
+        ok = states.count("OK")
+        s.update(ok=ok, lost=len(states) - ok,
+                 n_kf=int(len(m.valid_keyframes())),
+                 live_points=int(len(m.valid_points())))
+    else:
+        res = out["result"]
+        s.update(ok=int(np.asarray(res["ok"]).sum()), n_kf=int(res["n_kf"]))
+        if "n_opt" in out:
+            r2 = out["refined_ate"]
+            s.update(n_opt=int(out["n_opt"]),
+                     refined_ate_m=float(r2["rmse"]) if r2 else nan)
+    return s
+
+
+def driver_phase(torch, fast_cuda, run, args):
+    """One ``run(args)`` on the card (an offline driver's, or
+    profile_host.py's host loop): FAST launches and host syncs counted over
+    it, the card drained at the end. Returns (what run returns, launches,
+    syncs, sync sites, seconds, peak MiB)."""
     fast_cuda.LAUNCHES = 0
     peak_mib(torch)
     torch.cuda.synchronize()
     with count_host_syncs(torch) as sites:
         t0 = time.perf_counter()
-        states = run_host(sysm, frames)
+        out = run(args)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    launches = fast_cuda.LAUNCHES
-    mem = peak_mib(torch)
-    hs = host_summary(sysm, states, [f[0] for f in frames], gt, ate)
-    return (launches, sum(sites.values()), sites, secs, mem, hs,
-            dict(sysm.mapper.stage_ms))
+    return (out, fast_cuda.LAUNCHES, sum(sites.values()), sites, secs,
+            peak_mib(torch))
+
+
+def example_frames(torch, synthetic, SE3, cam, device, n=N_EXAMPLE):
+    """tests/test_example_drivers.py's frames: the room's 0.35 m orbit (30
+    poses, the first ``n``), each as a left image and a right one from the
+    pose moved by the baseline, as uint8 (the PNGs' contents)."""
+    planes = synthetic.make_room(seed=0, device=device)
+    poses = synthetic.camera_trajectory(30, radius=0.35)[:n]
+    b = np.asarray([cam.baseline, 0.0, 0.0], np.float32)
+
+    def u8(g):
+        return np.clip(g.cpu().numpy(), 0, 255).astype(np.uint8)
+
+    out = []
+    for p in poses:
+        gl = synthetic.render(cam, p, planes)[0]
+        right = SE3(p.R, torch.from_numpy(p.t.numpy() - b))
+        gr = synthetic.render(cam, right, planes)[0]
+        out.append((u8(gl), u8(gr)))
+    return out
+
+
+def write_example_sequences(png, frames, root):
+    """``frames`` written as a KITTI stereo sequence (root/kitti: times.txt,
+    image_0/, image_1/) and an EuRoC one (root/euroc: mav0/cam0/data.csv
+    and data/<ns>.png), as tests/test_example_drivers.py writes them.
+    Returns (kitti root, euroc root)."""
+    kroot = os.path.join(root, "kitti")
+    os.makedirs(os.path.join(kroot, "image_0"))
+    os.makedirs(os.path.join(kroot, "image_1"))
+    with open(os.path.join(kroot, "times.txt"), "w") as f:
+        for i, (gl, gr) in enumerate(frames):
+            f.write(f"{i / 10.0:.6f}\n")
+            png.write(os.path.join(kroot, "image_0", f"{i:06d}.png"), gl)
+            png.write(os.path.join(kroot, "image_1", f"{i:06d}.png"), gr)
+    eroot = os.path.join(root, "euroc")
+    cam0 = os.path.join(eroot, "mav0", "cam0", "data")
+    os.makedirs(cam0)
+    ns = [int(1.4e18) + i * 100_000_000 for i in range(len(frames))]
+    with open(os.path.join(eroot, "mav0", "cam0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n")
+        for stamp, (gl, _) in zip(ns, frames):
+            f.write(f"{stamp},{stamp}.png\n")
+            png.write(os.path.join(cam0, f"{stamp}.png"), gl)
+    return kroot, eroot
 
 
 def run_maintained(rt, frames):
@@ -1241,7 +1355,12 @@ def main():
     from coebslam_tpu_torch import config
     from coebslam_tpu_torch.config import SystemConfig
     from coebslam_tpu_torch.eval import ate
-    from coebslam_tpu_torch.io import checkpoint
+    from coebslam_tpu_torch.examples import run_mono, run_stereo, \
+        run_tum_rgbd
+    from coebslam_tpu_torch.geometry.se3 import SE3
+    from coebslam_tpu_torch.io import checkpoint, png, trajectory, tum
+    from coebslam_tpu_torch.eval import rpe
+    from coebslam_tpu_torch.tools import train_vocab
     from coebslam_tpu_torch.models import detector as detector_mod, yolov5
     from coebslam_tpu_torch.models.detector import BlurGate
     from coebslam_tpu_torch.ops import extractor, fast, fast_cuda, \
@@ -1631,8 +1750,10 @@ def main():
     # ---- 11. stereo at full width (tests/test_stereo_wide.py's scene)
     scfg = stereo_config(config)
     t0 = time.perf_counter()
-    frames, sgt = stereo_scene(torch, synthetic, replica, scfg.camera, dev)
-    print(f"[11] rendered {N_STEREO} stereo pairs in "
+    frames, sgt = stereo_scene(torch, synthetic, replica, scfg.camera, dev,
+                               N_STEREO_RUN)
+    print(f"[11] rendered the first {N_STEREO_RUN} of {N_STEREO} stereo "
+          f"pairs in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rt = RealtimeSlam(scfg, RTLimits())
     fast_cuda.LAUNCHES = 0
@@ -1652,7 +1773,8 @@ def main():
                         sgt)["rmse"]
     j = JAX_CPU_STEREO
     print(f"[11] stereo (JAX package on CPU in brackets): frames OK "
-          f"{n_ok}/{n} ({j['ok']}/{N_STEREO}; gate >= {STEREO_MIN_OK}), ATE "
+          f"{n_ok}/{n} ({j['ok']}/{N_STEREO_RUN}; gate >= {STEREO_MIN_OK}), "
+          f"ATE "
           f"{rmse * 100:.3f} cm ({j['ate_m'] * 100:.3f}; limit "
           f"{STEREO_ATE_LIMIT_M * 100:.0f} cm), keyframes {res['n_kf']} "
           f"({j['n_kf']}), live points {int(res['pt_valid'].sum())} "
@@ -1660,7 +1782,7 @@ def main():
           f"frames; {n} frames in {st_s:.1f} s ({n / st_s:.2f} fps); host "
           f"syncs {st_syncs} = {st_syncs / n:.2f} per frame {st_sites}; peak "
           f"device memory {peak_mib(torch):.1f} MiB", flush=True)
-    if n != N_STEREO or n_ok < STEREO_MIN_OK:
+    if n != N_STEREO_RUN or n_ok < STEREO_MIN_OK:
         _fail(f"stereo: {n_ok}/{n} frames tracked")
     if not np.isfinite(rmse) or rmse >= STEREO_ATE_LIMIT_M:
         _fail(f"stereo ATE {rmse} m >= {STEREO_ATE_LIMIT_M} m")
@@ -1671,7 +1793,7 @@ def main():
     lap("11")
     # ---- 12. monocular at full width (tests/test_realtime_mono.py's scene)
     mcfg = mono_config(config)
-    frames, mgt = mono_scene(synthetic, mcfg.camera, dev)
+    frames, mgt = mono_scene(synthetic, mcfg.camera, dev, N_MONO_RUN)
     rt = RealtimeSlam(mcfg, RTLimits())
     attempts = []
     fit = initializer_ops.reconstruct_graph
@@ -1748,16 +1870,44 @@ def main():
         _fail(f"mono: {mo_launches} FAST launches for {n} frames")
     mono_frames, mono_gt = frames, mgt    # [15b] reuses them
     lap("12")
-    # ---- 13. the host-orchestrated System on the TUM replica
+    # ---- 16a. the replica written as TUM files
+    files = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    rep_root = os.path.join(files.name, "replica")
+    rep_boxes = os.path.join(rep_root, "boxes.txt")
     t0 = time.perf_counter()
-    hframes, hgt = replica_host_frames(replica, N_HOST, dev)
-    print(f"[13] rendered the first {N_HOST} frames of the 400-frame replica "
-          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
-    hsys = System(SystemConfig())       # [15d] saves its map
-    h_launches, h_syncs, h_sites, h_s, h_mem, hs, stage_ms = \
-        host_phase(torch, fast_cuda, hsys, hframes, hgt, ate)
+    written = replica.write(rep_root, **HOST_SCHEDULE, frames=range(N_HOST),
+                            device=dev)
+    w_s = time.perf_counter() - t0
+    for i in (0, N_HOST - 1):
+        f = next(replica.generate(**HOST_SCHEDULE, frames=[i], device=dev))
+        name = f"{f.stamp:.6f}.png"
+        g = png.read(os.path.join(rep_root, "rgb", name))
+        d = png.read(os.path.join(rep_root, "depth", name))
+        if g.dtype != np.uint8 or d.dtype != np.uint16 \
+                or not np.array_equal(g, f.gray) \
+                or not np.array_equal(d, f.depth):
+            _fail(f"replica frame {i} does not decode to generate's arrays")
+    print(f"[16a] replica.write: the first {N_HOST} frames of the 400-frame "
+          f"replica (seed 0) rendered on the card and written as TUM files "
+          f"in {w_s:.1f} s, {written['bytes'] / 2 ** 20:.1f} MiB; frames 0 "
+          f"and {N_HOST - 1} decode (io/png) to generate's arrays exactly",
+          flush=True)
+    lap("16a")
+    # ---- 13. the host-orchestrated System, fed from the files by the
+    # offline driver (run_tum_rgbd, host mode, --boxes)
+    seq = tum.load_tum_sequence(rep_root)
+    hgt = seq.gt_poses[:N_HOST, :3]
+    h_out, h_launches, h_syncs, h_sites, h_s, h_mem = driver_phase(
+        torch, fast_cuda, run_tum_rgbd.run, run_tum_rgbd.parse_args(
+            [rep_root, "--boxes", rep_boxes, "--max-frames", str(N_HOST),
+             "--out", os.path.join(files.name, "host")]))
+    hsys = h_out["system"]               # [15d] saves its map
+    hs = host_summary(hsys, h_out["states"], seq.gt_stamps[:N_HOST], hgt,
+                      ate)
+    stage_ms = dict(hsys.mapper.stage_ms)
     j = JAX_CPU_HOST
-    print(f"[13] host System, synchronous mapping (JAX package on CPU in "
+    print(f"[13] host System through run_tum_rgbd from the files, "
+          f"synchronous mapping (JAX package on CPU in "
           f"brackets): frames OK {hs['ok']}/{hs['n']} ({j['ok']}), lost "
           f"{hs['lost']} ({j['lost']}; gate <= {HOST_MAX_LOST}), ATE "
           f"{hs['ate_m'] * 100:.3f} cm ({j['ate_m'] * 100:.3f}; limit "
@@ -1769,10 +1919,12 @@ def main():
           f"({j['culled_pt']})", flush=True)
     print(f"[13] FAST launches {h_launches} for {hs['n']} frames; host syncs "
           f"{h_syncs} = {h_syncs / hs['n']:.2f} per frame {h_sites}; "
-          f"{hs['n']} frames in {h_s:.1f} s ({hs['n'] / h_s:.2f} fps, the "
-          f"card drained at the end); mapper stage ms "
-          f"{ {k: round(v, 1) for k, v in stage_ms.items()} }; peak device "
-          f"memory {h_mem:.1f} MiB; on {card_line}", flush=True)
+          f"{hs['n']} frames in {h_s:.1f} s with PNG decoding and the "
+          f"trajectory files ({hs['n'] / h_s:.2f} fps, the card drained at "
+          f"the end), {h_out['track_s']:.1f} s in track_rgbd "
+          f"({hs['n'] / h_out['track_s']:.2f} fps, host clock); mapper "
+          f"stage ms {({k: round(v, 1) for k, v in stage_ms.items()})}; "
+          f"peak device memory {h_mem:.1f} MiB; on {card_line}", flush=True)
     if hs["lost"] > HOST_MAX_LOST:
         _fail(f"host System: {hs['lost']} frames lost")
     if not np.isfinite(hs["ate_m"]) or hs["ate_m"] >= HOST_ATE_LIMIT_M:
@@ -1780,6 +1932,9 @@ def main():
     if h_launches != hs["n"]:
         _fail(f"host System: {h_launches} FAST launches for {hs['n']} "
               f"frames")
+    stamp, g, d = seq.load_frame(N_HOST - 1)
+    h_last = (stamp, g, d, run_tum_rgbd.box_lookup(
+        rep_boxes, SystemConfig().dynamic.max_boxes)(stamp))
     lap("13")
     # ---- 14a. host loop closing: System(vocabulary=) over [6]'s circuit
     hl_launches, hl_n = host_loop_phase(
@@ -1807,8 +1962,138 @@ def main():
     lap("15c")
     # ---- 15d. a checkpoint of [13]'s map, resumed in localization mode
     checkpoint_phase(torch, checkpoint, System, SystemConfig, hsys,
-                     hframes[-1], card_line)
+                     h_last, card_line)
     lap("15d")
+    # ---- 16b. [13]'s trajectory files read back; RPE
+    hdir = h_out["out_dir"]
+    est_stamps, est_xyzq = trajectory.load_tum(
+        os.path.join(hdir, "CameraTrajectory.txt"))
+    kf_stamps, _ = trajectory.load_tum(
+        os.path.join(hdir, "KeyFrameTrajectory.txt"))
+    if len(est_stamps) != hs["n"] or len(kf_stamps) != hs["n_kf"] \
+            or not np.isfinite(est_xyzq).all():
+        _fail(f"[13]'s trajectory files: {len(est_stamps)} frames, "
+              f"{len(kf_stamps)} keyframes")
+    gt_at = np.searchsorted(seq.gt_stamps, est_stamps)
+    r = rpe.rpe(trajectory.tum_to_matrices(est_xyzq),
+                trajectory.tum_to_matrices(seq.gt_poses[gt_at]))
+    print(f"[16b] [13]'s CameraTrajectory.txt ({len(est_stamps)} rows) and "
+          f"KeyFrameTrajectory.txt ({len(kf_stamps)} rows) read back "
+          f"(io/trajectory); RPE over {r['pairs']} frame pairs: "
+          f"translation RMSE {r['trans_rmse'] * 1000:.3f} mm, rotation RMSE "
+          f"{np.degrees(r['rot_rmse']):.4f} deg", flush=True)
+    lap("16b")
+    # ---- 16c. the driver's realtime path with refinement, same files
+    rt_out, rt_launches, rt_syncs, rt_sites, rt_s, rt_mem = driver_phase(
+        torch, fast_cuda, run_tum_rgbd.run, run_tum_rgbd.parse_args(
+            [rep_root, "--boxes", rep_boxes, "--max-frames", str(N_HOST),
+             "--realtime", "--refine", "--out",
+             os.path.join(files.name, "realtime")]))
+    ds = driver_summary(rt_out)
+    j = JAX_CPU_DRIVER_RT
+    print(f"[16c] run_tum_rgbd --realtime --refine --boxes on the {N_HOST} "
+          f"files (JAX package on CPU in brackets): frames OK "
+          f"{ds['ok']}/{ds['n']} ({j['ok']}; gate >= "
+          f"{DRIVER_RT_MIN_OK}), ATE {ds['ate_m'] * 100:.3f} cm "
+          f"({j['ate_m'] * 100:.3f}; limit {DRIVER_RT_ATE_LIMIT_M * 100:.1f} "
+          f"cm), keyframes {ds['n_kf']} ({j['n_kf']}), global BA over "
+          f"{ds['n_opt']} keyframes ({j['n_opt']}), refined ATE "
+          f"{ds['refined_ate_m'] * 100:.3f} cm "
+          f"({j['refined_ate_m'] * 100:.3f}; limit "
+          f"{DRIVER_RT_REFINED_LIMIT_M * 100:.1f} cm and below the "
+          f"raw ATE)", flush=True)
+    print(f"[16c] FAST launches {rt_launches} for {ds['n']} frames; "
+          f"{rt_out['fps']:.2f} fps (the driver's: dispatch and the final "
+          f"drain, frames 2-{ds['n']}, host clock), the first frame "
+          f"{rt_out['first_s']:.1f} s; the whole run {rt_s:.1f} s with PNG "
+          f"decoding and the refinement; host syncs {rt_syncs}; peak "
+          f"device memory {rt_mem:.1f} MiB; on {card_line}", flush=True)
+    if ds["ok"] < DRIVER_RT_MIN_OK or not ds["ate_m"] < DRIVER_RT_ATE_LIMIT_M \
+            or not ds["refined_ate_m"] < DRIVER_RT_REFINED_LIMIT_M \
+            or not ds["refined_ate_m"] < ds["ate_m"]:
+        _fail(f"driver realtime: {ds}")
+    if rt_launches != ds["n"]:
+        _fail(f"driver realtime: {rt_launches} FAST launches for "
+              f"{ds['n']} frames")
+    lap("16c")
+    # ---- 16d. the stereo and mono drivers on KITTI and EuRoC files
+    ex_frames = example_frames(torch, synthetic, SE3, cam, dev)
+    kroot, eroot = write_example_sequences(png, ex_frames, files.name)
+    ex_launches = {}
+    for name, mod, argv, out_dir in (
+            ("stereo", run_stereo, ["kitti", kroot], "kitti_out"),
+            ("mono", run_mono, ["euroc", eroot], "euroc_out")):
+        out_dir = os.path.join(files.name, out_dir)
+        ex, ex_launches[name], _, _, ex_s, _ = driver_phase(
+            torch, fast_cuda, mod.run, mod.parse_args(argv + ["--out",
+                                                              out_dir]))
+        traj = ["KeyFrameTrajectory.txt"] + (
+            ["CameraTrajectoryKITTI.txt", "CameraTrajectory.txt"]
+            if name == "stereo" else ["CameraTrajectory.txt"])
+        missing = [t for t in traj
+                   if not os.path.exists(os.path.join(out_dir, t))]
+        rows = ""
+        if name == "stereo" and not missing:
+            k = np.loadtxt(os.path.join(out_dir, traj[1])).reshape(-1, 12)
+            rows = f", {len(k)} KITTI rows"
+            if len(k) != N_EXAMPLE:
+                _fail(f"run_stereo: {len(k)} KITTI rows")
+        print(f"[16d] run_{name} {argv[0]} on {N_EXAMPLE} PNG frames: states "
+              f"{ex['states']}, {', '.join(traj)} written{rows}; FAST "
+              f"launches {ex_launches[name]} (expected "
+              f"{EXAMPLE_LAUNCHES[name]}); {ex_s:.1f} s", flush=True)
+        if missing:
+            _fail(f"run_{name}: {missing} not written")
+        if ex_launches[name] != EXAMPLE_LAUNCHES[name]:
+            _fail(f"run_{name}: {ex_launches[name]} FAST launches")
+        if name == "stereo" and "OK" not in ex["states"]:
+            _fail(f"run_stereo tracked no frame: {ex['states']}")
+    lap("16d")
+    # ---- 16e. the ORBvoc text format, both ways, on the committed
+    # vocabulary; [4]'s first frame's words before and after
+    voc_txt = os.path.join(files.name, "ORBvoc.txt")
+    t0 = time.perf_counter()
+    vocabulary.save_orbvoc_text(voc_txt, voc)
+    t1 = time.perf_counter()
+    voc2 = vocabulary.load_orbvoc_text(voc_txt)
+    t2 = time.perf_counter()
+    f0 = extractor.extract(torch.from_numpy(G[0]).to(dev, torch.float32),
+                           cfg.orb)
+    d0 = f0.desc[f0.valid].cpu().numpy()
+    w_before = vocabulary.transform_host(voc, d0)[0]
+    w_after = vocabulary.transform_host(voc2, d0)[0]
+    same = all(np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(voc, voc2))
+    print(f"[16e] ORBvoc text of artifacts/vocab_1e5.npz ({voc.n_words} "
+          f"words, {len(voc.node_desc)} nodes): written in {t1 - t0:.2f} s, "
+          f"{os.path.getsize(voc_txt) / 2 ** 20:.1f} MiB, read in "
+          f"{t2 - t1:.2f} s; every array equal: {same}; [4]'s first frame's "
+          f"{len(d0)} descriptors give equal words before and after: "
+          f"{np.array_equal(w_before, w_after)}", flush=True)
+    if not same or not np.array_equal(w_before, w_after):
+        _fail("ORBvoc text round trip changed the vocabulary")
+    lap("16e")
+    # ---- 16f. train a small vocabulary (tools/train_vocab)
+    voc_npz = os.path.join(files.name, "vocab_small.npz")
+    tv, tv_launches, _, _, tv_s, _ = driver_phase(
+        torch, fast_cuda, train_vocab.run, train_vocab.parse_args(
+            [voc_npz, "--frames", str(VOCAB_TRAIN["frames"]), "--depth",
+             str(VOCAB_TRAIN["depth"])]))
+    back = vocabulary.load(voc_npz)
+    print(f"[16f] train_vocab --frames {VOCAB_TRAIN['frames']} --depth "
+          f"{VOCAB_TRAIN['depth']}: {tv['n_descriptors']} descriptors "
+          f"harvested on the card in {tv['harvest_s']:.1f} s, "
+          f"{tv['vocabulary'].n_words} words trained in "
+          f"{tv['train_s']:.1f} s ({tv_s:.1f} s in all); vocabulary.load "
+          f"reads back {back.n_words} words; FAST launches {tv_launches}",
+          flush=True)
+    if tv_launches != VOCAB_TRAIN["frames"] \
+            or back.n_words != tv["vocabulary"].n_words \
+            or not np.array_equal(back.children, tv["vocabulary"].children):
+        _fail(f"train_vocab: {tv_launches} FAST launches, "
+              f"{back.n_words} words read back")
+    files.cleanup()
+    lap("16f")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
@@ -1831,7 +2116,11 @@ def main():
                              "host_reloc": hr_launches,
                              "host_stereo": hst_launches,
                              "host_mono": hmo_launches,
-                             "host_flow": hfl_launches},
+                             "host_flow": hfl_launches,
+                             "driver_realtime": rt_launches,
+                             "driver_stereo": ex_launches["stereo"],
+                             "driver_mono": ex_launches["mono"],
+                             "train_vocab": tv_launches},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,12 @@ The port runs the zero-sync realtime RGB-D, stereo and monocular paths
 stream, tracking, keyframing and windowed BA), their maintenance program
 (BoW loop closing, the place bank, relocalization), the offline
 refinement of a finished session (handoff to a host map, global BA) and
-the host-orchestrated RGB-D ``System`` (host tracker, covisibility mapper
-with culling) as PyTorch code on an NVIDIA GPU, with the FAST corner
-kernel written by hand
-in CUDA C++ (``csrc/fast.cu``). Module paths mirror the JAX package so each counterpart
-is found under the same name; this package imports neither JAX nor the JAX
-package.
+the host-orchestrated ``System`` (host tracker, covisibility mapper
+with culling) and its file-based entry points as PyTorch code on an
+NVIDIA GPU, with the FAST corner kernel written by hand in CUDA C++
+(``csrc/fast.cu``). Module paths mirror the JAX package so each
+counterpart is found under the same name; this package imports neither
+JAX nor the JAX package, nor PIL or PyYAML.
 
 Sub-packages
 ------------
@@ -25,9 +25,13 @@ slam       frame constructor, dynamic front-end, tracking step and host
            host map arena and its device mirror, local mapper, System
            facade, global BA, handoff and refine
 utils      synthetic RGB-D renderer (the room, the walker, the loop
-           circuit), the TUM-format replica scenes, metrics
-io         TUM and KITTI trajectory files
-eval       ATE metric
+           circuit), the TUM-format replica scenes (in memory and written
+           to disk), metrics, offline visualization
+io         PNG codec (zlib and numpy), TUM, EuRoC and KITTI sequences,
+           TUM and KITTI trajectory files, map checkpoints
+eval       ATE and RPE metrics
+examples   the offline drivers (rgbd_tum, stereo, mono, synthetic)
+tools      the replica writer and the vocabulary trainer
 """
 
 import torch

@@ -7,11 +7,13 @@ level by level as a gather + Hamming argmin over the node's children. A
 ``Vocabulary`` holds numpy arrays, field for field as in the JAX package,
 so one loaded there carries over as ``Vocabulary(*jax_voc)``. Training
 (host, numpy: binary k-means with majority-vote centroids) gives the same
-arrays as the JAX package's for the same seed. The ORBvoc text format is
-not ported.
+arrays as the JAX package's for the same seed. ``load_orbvoc_text`` and
+``save_orbvoc_text`` read and write the reference's ORBvoc.txt (DBoW2
+text) format, parsed with numpy as a whole and not line by line.
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -234,3 +236,97 @@ def load(path: str) -> Vocabulary:
     return Vocabulary(z["node_desc"], z["children"], z["word_id"],
                       z["word_weight"], z["node_level"],
                       int(z["meta"][0]), int(z["meta"][1]))
+
+
+def _orbvoc_rows(text: str) -> np.ndarray:
+    """The data lines of an ORBvoc text body as [n, 35] float64 rows, as
+    the line-by-line reading gives them: lines of fewer than 35 fields are
+    skipped and fields past the 35th ignored. Files whose every line has
+    35 fields are parsed in one numpy call."""
+    n_lines = sum(1 for line in text.splitlines() if line.strip())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        vals = np.fromstring(text, dtype=np.float64, sep=" ")
+    if vals.size == 35 * n_lines:
+        rows = vals.reshape(-1, 35)
+        if np.isin(rows[:, 1], (0.0, 1.0)).all() and \
+                (rows[:, 2:34] == np.floor(rows[:, 2:34])).all():
+            return rows
+    rows = [[float(x) for x in parts[:35]]
+            for parts in (line.split() for line in text.splitlines())
+            if len(parts) >= 35]
+    return np.asarray(rows, np.float64).reshape(-1, 35)
+
+
+def load_orbvoc_text(path: str) -> Vocabulary:
+    """Load the reference's ORBvoc.txt (DBoW2 text format).
+
+    Format (TemplatedVocabulary::saveToTextFile): a header line
+    ``k L scoring weighting``, then one line per node except the root:
+    ``parent is_leaf d0 .. d31 weight``. Node ids are implicit: the root
+    is node 0 and the i-th data line (from 1) is node i; ``parent`` is the
+    parent's final node id (root 0). A parent takes at most k children, in
+    file order. Word ids go to the leaves in file order.
+    """
+    with open(path) as f:
+        header = f.readline().split()
+        k, L = int(header[0]), int(header[1])
+        rows = _orbvoc_rows(f.read())
+    n = len(rows)
+    n_nodes = n + 1
+    ids = np.arange(1, n_nodes)
+    parent = rows[:, 0].astype(np.int64)
+    node_desc = np.zeros((n_nodes, 32), np.uint8)
+    node_desc[1:] = rows[:, 2:34].astype(np.uint8)
+    # Each node's rank among its parent's children, in file order.
+    ok = (parent >= 0) & (parent < n_nodes)
+    order = np.argsort(np.where(ok, parent, n_nodes), kind="stable")
+    sp = parent[order]
+    first = np.searchsorted(sp, sp, side="left")
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n) - first
+    linked = ok & (rank < k)
+    children = np.full((n_nodes, k), -1, np.int32)
+    children[parent[linked], rank[linked]] = ids[linked]
+    # A linked node's level is its parent's level + 1, the parent's level
+    # as it stood when the node was read (0 when the parent comes later).
+    node_level = np.zeros(n_nodes, np.int32)
+    before = linked & (parent < ids)
+    node_level[ids[linked & ~before]] = 1
+    while True:
+        new = node_level.copy()
+        new[ids[before]] = node_level[parent[before]] + 1
+        if np.array_equal(new, node_level):
+            break
+        node_level = new
+    leaf = rows[:, 1] != 0
+    word_id = np.full(n_nodes, -1, np.int32)
+    word_id[ids[leaf]] = np.arange(int(leaf.sum()), dtype=np.int32)
+    weights = rows[leaf, 34].astype(np.float32)
+    return Vocabulary(node_desc, children, word_id, weights, node_level, L,
+                      k)
+
+
+def save_orbvoc_text(path: str, voc: Vocabulary) -> None:
+    """Write a vocabulary in DBoW2's ORBvoc.txt text format, the inverse of
+    ``load_orbvoc_text`` (the JAX package's writer, byte for byte).
+
+    Nodes must be stored parent before child (true of trees built by
+    ``train`` and read by ``load_orbvoc_text``).
+    """
+    n_nodes = len(voc.node_desc)
+    parent = np.zeros(n_nodes, np.int64)
+    ch = np.asarray(voc.children)
+    has = ch >= 0
+    parent[ch[has]] = np.nonzero(has)[0]
+    word_id = np.asarray(voc.word_id)[1:]
+    leaf = word_id >= 0
+    w = np.zeros(n_nodes - 1, np.float64)
+    w[leaf] = np.asarray(voc.word_weight)[word_id[leaf]]
+    table = np.array([str(i) for i in range(256)], dtype=object)
+    descs = table[np.asarray(voc.node_desc)[1:]].tolist()
+    lines = [f"{p} {int(f)} {' '.join(d)} {x}\n" for p, f, d, x in zip(
+        parent[1:].tolist(), leaf.tolist(), descs, w.tolist())]
+    with open(path, "w") as f:
+        f.write(f"{voc.branching} {voc.depth} 0 0\n")
+        f.writelines(lines)

@@ -4,15 +4,17 @@ Counterpart of ``coebslam_tpu/utils/replica.py``: the handheld walking and
 out-and-back trajectories, the separable box blur, and ``generate``, the
 replica sequence of the TUM fr3 wire format (640x480, fr3 intrinsics, a
 walking person, motion-blur windows and a camera-shake segment). The JAX
-package writes the frames as PNG files through PIL; here ``generate``
+package writes the frames as PNG files through PIL. Here ``generate``
 yields each frame in memory, rendered only when it is asked for, in the
 wire's quantisation (8-bit grey, 16-bit depth at metres x 5000) with the
 ground-truth line and the boxes as the text files carry them (``%.1f``),
 so a caller gets what the JAX package's ``io/tum.py`` and ``load_boxes``
-read back from its files.
+read back from its files; ``write`` writes those files (through
+``io/png.py``), the file set of the JAX package's ``generate(root)``.
 """
 from __future__ import annotations
 
+import os
 from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 from ..config import CameraConfig
 from ..geometry import so3
 from ..geometry.se3 import SE3
+from ..io import png
 from . import synthetic
 
 DEPTH_FACTOR = 5000.0
@@ -192,6 +195,56 @@ def generate(n_frames: int = 400, seed: int = 0,
                             for ln in box_lines], np.float32).reshape(-1, 4)
         yield ReplicaFrame(i, float(f"{stamp:.6f}"), g8, d16, boxes, pose,
                            gt_line, box_lines)
+
+
+HEADER = "# replica of TUM RGB-D wire format (coebslam_tpu)\n"
+
+
+def write(root: str, n_frames: int = 400, seed: int = 0,
+          cam: Optional[CameraConfig] = None,
+          blur_windows: Tuple[Tuple[int, int, int], ...] = (),
+          shake_window: Optional[Tuple[int, int]] = None,
+          walkers: int = 1, closure: bool = False, frames=None,
+          device=None, progress: bool = False) -> dict:
+    """Render the replica sequence (``generate``'s arguments) and write it
+    to ``root`` as a TUM sequence: ``rgb/*.png`` (8-bit grey),
+    ``depth/*.png`` (16-bit, metres x 5000), ``rgb.txt``, ``depth.txt``,
+    ``groundtruth.txt`` and ``boxes.txt``, with the JAX package's header
+    and line formats. ``frames`` writes those frames of the
+    ``n_frames`` schedule only (e.g. a prefix), rendering no other.
+    Returns {"stamps", "poses", "boxes", "bytes"} of the frames written.
+    """
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    rgb_lines, depth_lines, gt_lines, box_lines = [], [], [], []
+    stamps, poses, boxes = [], [], []
+    n_bytes = 0
+    for k, f in enumerate(generate(n_frames, seed, cam, blur_windows,
+                                   shake_window, walkers, closure, frames,
+                                   device)):
+        name = f"{f.stamp:.6f}.png"
+        for sub, img in (("rgb", f.gray), ("depth", f.depth)):
+            path = os.path.join(root, sub, name)
+            png.write(path, img)
+            n_bytes += os.path.getsize(path)
+        rgb_lines.append(f"{f.stamp:.6f} rgb/{name}")
+        depth_lines.append(f"{f.stamp:.6f} depth/{name}")
+        gt_lines.append(f.gt_line)
+        box_lines.extend(f.box_lines)
+        stamps.append(f.stamp)
+        poses.append(f.pose)
+        boxes.append(f.boxes)
+        if progress and k % 50 == 0:
+            print(f"  wrote frame {f.index} of {n_frames}", flush=True)
+    for fname, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
+                         ("groundtruth.txt", gt_lines),
+                         ("boxes.txt", box_lines)):
+        path = os.path.join(root, fname)
+        with open(path, "w") as fh:
+            fh.write(HEADER + "\n".join(lines) + "\n")
+        n_bytes += os.path.getsize(path)
+    return {"stamps": np.asarray(stamps), "poses": poses, "boxes": boxes,
+            "bytes": n_bytes}
 
 
 def load_boxes(path: str, max_boxes: int = 8):

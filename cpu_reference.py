@@ -7,7 +7,8 @@ Run from the repository root:
     python3 cpu_reference.py jax refine {orbit,circuit}
     python3 cpu_reference.py port {circuit,kidnap,selfdetect}
     python3 cpu_reference.py port refine circuit
-    python3 cpu_reference.py {jax,port} host-replica
+    python3 cpu_reference.py {jax,port} {host-replica,driver-rt} [N]
+    python3 cpu_reference.py port png
     python3 cpu_reference.py {jax,port} {host-loop,host-reloc}
     python3 cpu_reference.py {jax,port} {host-loop-full,host-reloc-full}
     python3 cpu_reference.py {jax,port} {host-stereo,host-mono,host-flow}
@@ -37,11 +38,23 @@ matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
 - ``stereo N``, ``mono N``: the first N frames of either scene (the cut
   ``chip_smoke.py`` makes when the script runs long).
 - ``host-replica`` ([13]): the host-orchestrated ``System(SystemConfig())``
-  (synchronous, no vocabulary, no detector) over the first N_HOST frames of
-  the 400-frame TUM replica with the walker's boxes (the JAX package
-  writes and reads back its PNG files as tests/test_tum_replica.py does;
-  the port renders them in memory): frames OK and lost, ATE, keyframes,
-  live points, local BAs and the keyframes and points culled.
+  (synchronous, no vocabulary, no detector) over the first N (default
+  N_HOST) frames of the 400-frame TUM replica with the walker's boxes (the
+  JAX package writes and reads back its PNG files as
+  tests/test_tum_replica.py does; the port renders them in memory): frames
+  OK and lost, ATE, keyframes, live points, local BAs and the keyframes and
+  points culled.
+- ``driver-rt`` ([16c]): each package's offline driver,
+  ``run_tum_rgbd --realtime --refine --boxes``, on the first N (default
+  N_HOST) files of the 400-frame replica: frames OK, ATE, keyframes, the
+  keyframes the global BA optimised and the refined ATE. The JAX package
+  writes its replica (``generate(root)``) and runs
+  ``examples/run_tum_rgbd.py`` in this process; the port writes the first
+  N frames (``replica.write``) and runs its driver's ``run()``.
+- ``png``: the CPU time of ``io/png.decode`` on the replica's first
+  depth frame (640x480, 16-bit), median of 5: as the port's writer files
+  it (None/Sub/Up rows, undone row by row) and with every row Paeth
+  (the anti-diagonal sweep), the worst case for a file from libpng.
 - ``host-loop`` ([14a]): ``System(vocabulary=)`` (synchronous) over
   tests/test_loop_e2e.py's circuit at the test's ORB cut (1024
   keypoints, 4 levels; ``host_bow_scenes.HOST_LOOP_ORB``) with the scene's own
@@ -88,6 +101,7 @@ import time
 import numpy as np
 
 from chip_smoke import (CIRCUIT_LIMITS, DETECT_EVERY, HOST_SCHEDULE,
+                        driver_summary,
                         MONO_RADIUS, N_HOST, N_MONO, N_SELFDETECT, N_STEREO,
                         STEREO_BLUR, STEREO_WALKER, circuit_config,
                         host_summary, mean_best_iou, mono_config, mono_scene,
@@ -208,8 +222,9 @@ def _count_mapper(sysm):
     return n
 
 
-def run_host_replica(pkg):
-    """[13] on either package."""
+def run_host_replica(pkg, n=None):
+    """[13] on either package, on the first ``n`` (default N_HOST) frames."""
+    n = n or N_HOST
     if pkg == "jax":
         import tempfile
         from coebslam_tpu.config import SystemConfig
@@ -222,19 +237,19 @@ def run_host_replica(pkg):
         seq = tum.load_tum_sequence(root)
         bstamps, bboxes = replica.load_boxes(os.path.join(root, "boxes.txt"))
         frames = []
-        for i in range(N_HOST):
+        for i in range(n):
             stamp, gray, depth = seq.load_frame(i, depth_factor=5000.0)
             j = int(np.argmin(np.abs(bstamps - stamp)))
-            b = bboxes[j] if abs(bstamps[j] - stamp) < 0.03 else None
+            b = bboxes[j] if abs(bstamps[j] - stamp) <= 0.03 else None
             frames.append((stamp, gray, depth, b))
-        gt_stamps, gt = seq.gt_stamps[:N_HOST], seq.gt_poses[:N_HOST, :3]
+        gt_stamps, gt = seq.gt_stamps[:n], seq.gt_poses[:n, :3]
         sysm = System(SystemConfig())
     else:
         from coebslam_tpu_torch.config import SystemConfig
         from coebslam_tpu_torch.eval import ate
         from coebslam_tpu_torch.slam.system import System
         from coebslam_tpu_torch.utils import replica
-        frames, gt = replica_host_frames(replica, N_HOST, "cpu")
+        frames, gt = replica_host_frames(replica, n, "cpu")
         gt_stamps = [f[0] for f in frames]
         sysm = System(SystemConfig(), device="cpu")
     counts = _count_mapper(sysm)
@@ -243,6 +258,104 @@ def run_host_replica(pkg):
     out = host_summary(sysm, states, gt_stamps, gt, ate)
     out.update(counts, track_s=time.time() - t0,
                stage_ms=dict(sysm.mapper.stage_ms))
+    return out
+
+
+def run_driver_rt(pkg, n=None):
+    """[16c] on either package: its driver ``run_tum_rgbd --realtime
+    --refine --boxes``, run as a user runs it, on the first ``n`` replica
+    files."""
+    import tempfile
+    n = n or N_HOST
+    root = tempfile.mkdtemp(prefix="replica_driver_")
+    argv = [root, "--cpu", "--boxes", os.path.join(root, "boxes.txt"),
+            "--max-frames", str(n), "--out", os.path.join(root, "out"),
+            "--realtime", "--refine"]
+    t0 = time.time()
+    if pkg == "port":
+        from coebslam_tpu_torch.examples import run_tum_rgbd
+        from coebslam_tpu_torch.utils import replica
+        replica.write(root, **HOST_SCHEDULE, frames=range(n), device="cpu")
+        write_s = time.time() - t0
+        summary = driver_summary(run_tum_rgbd.run(
+            run_tum_rgbd.parse_args(argv)))
+    else:
+        from coebslam_tpu.utils import replica
+        replica.generate(root, **HOST_SCHEDULE)
+        write_s = time.time() - t0
+        summary = _jax_driver_rt(argv, n)
+    summary.update(write_s=write_s)
+    return summary
+
+
+def _jax_driver_rt(argv, n):
+    """examples/run_tum_rgbd.py run in this process with ``argv``: frames
+    OK, keyframes and the keyframes optimised read from its log, its two
+    ATEs (raw, refined) recorded at full precision as it computes them."""
+    import contextlib
+    import io
+    import re
+    import runpy
+    from coebslam_tpu.eval import ate
+    scores, ate_rmse = [], ate.ate_rmse
+
+    def record(*a, **kw):
+        scores.append(ate_rmse(*a, **kw))
+        return scores[-1]
+    ate.ate_rmse, sys.argv, log = record, ["run_tum_rgbd.py"] + argv, \
+        io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            runpy.run_path("examples/run_tum_rgbd.py", run_name="__main__")
+    finally:
+        ate.ate_rmse = ate_rmse
+    text = log.getvalue()
+    ok, n_kf = re.search(r"ok (\d+)/\d+; keyframes (\d+)", text).groups()
+    n_opt = re.search(r"global BA over (\d+) keyframes", text).group(1)
+    return {"n": n, "ate_m": float(scores[0]["rmse"]), "ok": int(ok),
+            "n_kf": int(n_kf), "n_opt": int(n_opt),
+            "refined_ate_m": float(scores[1]["rmse"])}
+
+
+def run_png():
+    """``png``: decode times of a replica depth frame (see the module's
+    docstring)."""
+    import zlib
+    from coebslam_tpu_torch.io import png
+    from coebslam_tpu_torch.utils import replica
+    f = next(replica.generate(**HOST_SCHEDULE, frames=[0], device="cpu"))
+    own = png.encode(f.depth)
+    # Every row Paeth-filtered (encoding depends on the raw bytes only).
+    raw = f.depth.astype(">u2").view(np.uint8).reshape(
+        f.depth.shape[0], -1).astype(np.int16)
+    a = np.zeros_like(raw)
+    a[:, 2:] = raw[:, :-2]
+    b = np.zeros_like(raw)
+    b[1:] = raw[:-1]
+    c = np.zeros_like(raw)
+    c[1:, 2:] = raw[:-1, :-2]
+    pred = png._paeth(a, b, c)
+    body = np.concatenate([np.full((len(raw), 1), 4, np.uint8),
+                           ((raw - pred) & 0xFF).astype(np.uint8)], 1)
+    ihdr = own[16:29]
+    paeth = (png.SIGNATURE + png._chunk(b"IHDR", ihdr)
+             + png._chunk(b"IDAT", zlib.compress(body.tobytes()))
+             + png._chunk(b"IEND", b""))
+    out = {}
+    for name, data in (("rows_none_sub_up", own), ("rows_paeth", paeth)):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            img = png.decode(data)
+            times.append(time.perf_counter() - t0)
+        if not np.array_equal(img, f.depth):
+            sys.exit(f"png {name}: decode differs")
+        out[f"decode_ms_{name}"] = float(np.median(times) * 1e3)
+        out[f"bytes_{name}"] = len(data)
+    t0 = time.perf_counter()
+    png.encode(f.depth)
+    out["encode_ms"] = (time.perf_counter() - t0) * 1e3
+    out["shape"] = list(f.depth.shape)
     return out
 
 
@@ -575,7 +688,9 @@ def run_jax(scene, refine, n=None):
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     if scene == "host-replica":
-        return run_host_replica("jax")
+        return run_host_replica("jax", n)
+    if scene == "driver-rt":
+        return run_driver_rt("jax", n)
     if scene.startswith(("host-loop", "host-reloc")):
         return run_host_bow("jax", scene)
     if scene.startswith(("host-stereo", "host-mono", "host-flow")):
@@ -668,7 +783,11 @@ def run_port(scene, refine, n=None):
     from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
     from coebslam_tpu_torch.utils import replica, synthetic
     if scene == "host-replica":
-        return run_host_replica("port")
+        return run_host_replica("port", n)
+    if scene == "driver-rt":
+        return run_driver_rt("port", n)
+    if scene == "png":
+        return run_png()
     if scene.startswith(("host-loop", "host-reloc")):
         return run_host_bow("port", scene)
     if scene.startswith(("host-stereo", "host-mono", "host-flow")):
@@ -735,7 +854,8 @@ def main():
     if refine:
         args = [args[0], args[2]]
     n = None
-    if len(args) == 3 and args[1] in ("stereo", "mono") \
+    if len(args) == 3 and args[1] in ("stereo", "mono", "host-replica",
+                                      "driver-rt") \
             and args[2].isdigit():
         n = int(args.pop())
     if len(args) != 2:
@@ -743,12 +863,13 @@ def main():
     pkg, scene = args
     scenes = ("orbit", "circuit") if refine else (
         "orbit", "circuit", "kidnap", "selfdetect", "stereo", "mono",
-        "host-replica", "host-loop", "host-reloc", "host-loop-full",
+        "host-replica", "driver-rt", "png", "host-loop",
+        "host-reloc", "host-loop-full",
         "host-reloc-full") + tuple(
             f"host-{k}{f}" for k in ("stereo", "mono", "flow")
             for f in ("", "-full"))
     if pkg not in ("jax", "port") or scene not in scenes \
-            or (pkg, scene) == ("port", "orbit"):
+            or (pkg, scene) in (("port", "orbit"), ("jax", "png")):
         sys.exit(__doc__)
     t0 = time.time()
     out = (run_jax if pkg == "jax" else run_port)(scene, refine, n)

@@ -20,7 +20,8 @@ import sys
 
 import numpy as np
 
-from chip_smoke import (N_HOST, card, host_phase, replica_host_frames)
+from chip_smoke import (N_HOST, card, driver_phase, host_summary,
+                        replica_host_frames, run_host)
 
 
 def main():
@@ -44,8 +45,10 @@ def main():
         sysm = System(SystemConfig())
         if mode == "realtime":
             sysm.enable_realtime(finalize_batch=8)
-        launches, syncs, sites, secs, mem, hs, stage_ms = host_phase(
-            torch, fast_cuda, sysm, frames, gt, ate)
+        states, launches, syncs, sites, secs, mem = driver_phase(
+            torch, fast_cuda, lambda s: run_host(s, frames), sysm)
+        hs = host_summary(sysm, states, [f[0] for f in frames], gt, ate)
+        stage_ms = dict(sysm.mapper.stage_ms)
         wall = np.asarray([f.wall_ms for f in sysm.metrics.frames])
         r = dict(hs, fast_launches=launches, host_syncs=syncs,
                  syncs_per_frame=syncs / hs["n"], sync_sites=sites,

@@ -555,3 +555,26 @@ def test_lk_flow_and_dynamic_frontend_on_card_match_cpu(card):
               "outlier_valid"):
         assert torch.equal(getattr(rg, f).cpu(), getattr(rc, f)), f
     assert int(rc.n_outliers) > 0
+
+
+def test_tum_rgbd_driver_on_card(card, tmp_path):
+    """run_tum_rgbd's host mode on 5 replica frames that replica.write
+    rendered on the card: every part of the System on the card, one FAST
+    launch per frame, every frame tracked, the trajectory files written."""
+    from coebslam_tpu_torch.examples import run_tum_rgbd
+    from coebslam_tpu_torch.utils import replica
+    root = str(tmp_path / "replica")
+    replica.write(root, n_frames=400, seed=0, frames=range(5), device=card)
+    fast_cuda.LAUNCHES = 0
+    out = run_tum_rgbd.run(run_tum_rgbd.parse_args(
+        [root, "--boxes", str(tmp_path / "replica" / "boxes.txt"),
+         "--out", str(tmp_path / "out")]))
+    assert fast_cuda.LAUNCHES == 5
+    sysm = out["system"]
+    assert out["device"] == "cuda"
+    assert {sysm.device.type, sysm.tracker.device.type,
+            sysm.mapper.device.type} == {"cuda"}
+    assert out["states"] == ["OK"] * 5
+    assert out["ate"]["rmse"] < 0.02
+    rows = np.loadtxt(tmp_path / "out" / "CameraTrajectory.txt", ndmin=2)
+    assert rows.shape == (5, 8)
