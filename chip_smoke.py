@@ -163,11 +163,14 @@ Phases (each one failing the run with a non-zero exit when it fails):
      b. [13]'s CameraTrajectory.txt and KeyFrameTrajectory.txt read back
         (io/trajectory.load_tum: a row per frame and per keyframe) and
         their RPE against the ground truth (eval/rpe).
-     c. run_tum_rgbd --realtime --refine --boxes on the same files:
-        frames OK >= 55, ATE < 8 cm, refined ATE < 1.5 cm and below the
-        raw ATE (tests/test_tum_replica.py's gates, which the JAX package
-        passes on these 60 frames on the CPU), one FAST launch per frame;
-        fps, the keyframes optimised, peak device memory.
+     c. run_tum_rgbd --realtime --refine --hybrid-gba --boxes on the same
+        files: frames OK >= 55, ATE < 8 cm, refined ATE < 1.5 cm and below
+        the raw ATE (tests/test_tum_replica.py's gates, which the JAX
+        package passes on these 60 frames on the CPU), one FAST launch per
+        frame; fps, the keyframes optimised, peak device memory. Then the
+        hybrid-mesh GBA of the refined arena, one rank per card (one NCCL
+        rank here): its line, mesh, backend and seconds; its keyframe
+        poses within 2e-3 of the refine step's.
      d. run_stereo kitti and run_mono euroc on tests/test_example_drivers.py's
         6 frames, rendered on the card and written as PNGs: the
         trajectories written (6 KITTI rows), a frame tracked by the stereo
@@ -177,6 +180,36 @@ Phases (each one failing the run with a non-zero exit when it fails):
         equal before and after; seconds each way and MiB.
      f. tools/train_vocab --frames 24 --depth 3: 24 FAST launches, the
         words, seconds, and vocabulary.load of its output.
+ 17. Multi-device BA on the card (parallel/: one process per rank,
+     launched with parallel.launch; 4 ranks share the one card over gloo,
+     which stages its collectives through host copies):
+     a. entry.entry(): the fused front-end + track step at 640x480 on the
+        __graft_entry__ arguments, one FAST launch, its device ms, and its
+        result against the same function on the CPU (pose within 1e-4,
+        inliers within 1).
+     b. entry.dryrun_multichip(4): parts (a)-(e) of __graft_entry__ with
+        their checks ((e): the segment-sharded GBA of a 100-keyframe /
+        16k-point arena equals the 1-D mesh's within 2e-3), 4 FAST
+        launches (one frame per rank).
+     c. [10]'s handed-off orbit arena (the real map at full width) through
+        multihost.arena_to_ba_problem, its segment-sharded global BA over
+        a (2, 2) mesh against optimize_global_ba in this process: kf_t and
+        kf_R within 2e-3, median point gap under 5e-3, the ranks' poses
+        bit-equal.
+     d. The pose graph of that arena's keyframes (chain + loop edge,
+        translations perturbed by 1 cm) over 4 ranks against the
+        single-rank solve, within 2e-3.
+     Each part prints its seconds, all-reduces per GN iteration (2: S and
+     b), the bytes of each and the backend. NCCL across cards is not
+     verified here (one card).
+ 18. Detector training on the card (tools/train_detector.run at the
+     walker detector's width 0.25, batch 8, 320 input; cut for the
+     script's time to 2 sequences x 40 frames and 100 steps, the JAX tool
+     runs 3 x 130 and 700): the loss at the first and last step, steps/s,
+     the held-out IoU, peak device memory, and the written .npz read back
+     by models.detector.load_variables_npz equal to the trained state.
+     Gates: every loss finite, the mean of the last 10 below that of the
+     first 10, training on the card.
 Each of [4], [6]-[15] and [16c] prints the JAX package's result on the CPU
 for the same scene and configuration beside its own, and the peak device
 memory.
@@ -313,6 +346,14 @@ JAX_CPU_HOST = dict(ok=60, lost=0, ate_m=0.002227, n_kf=9, live_points=811,
 N_EXAMPLE = 6                    # tests/test_example_drivers.py's frames
 EXAMPLE_LAUNCHES = dict(stereo=2 * N_EXAMPLE, mono=N_EXAMPLE)
 VOCAB_TRAIN = dict(frames=24, depth=3)
+# [17]: multi-device BA on the one card; tests/test_sharded_ba.py's
+# tolerances.
+MULTICHIP_RANKS = 4
+SHARD_POSE_TOL = 2e-3
+SHARD_POINT_GAP = 5e-3
+ENTRY_POSE_TOL = 1e-4
+# [18]: detector training at the walker detector's width, cut for time.
+TRAIN_DETECTOR = dict(width=0.25, batch=8, seqs=2, frames=40, steps=100)
 # [16c]: run_tum_rgbd --realtime --refine on the first N_HOST files
 # (cpu_reference.py jax driver-rt), and tests/test_tum_replica.py's gates,
 # which the JAX package passes there.
@@ -1346,6 +1387,156 @@ def checkpoint_phase(torch, checkpoint, System, SystemConfig, hsys, last,
               f"{n_kfs} -> {kept}")
 
 
+def multichip_phase(torch, fast_cuda, orbit_session, handoff, card_line,
+                    dev):
+    """[17]: the entry step, dryrun_multichip over MULTICHIP_RANKS ranks on
+    the card, and the sharded global BA and pose graph of the orbit's
+    handed-off arena against their single-rank solves. Returns (the entry
+    step's FAST launches, the dry run's dict)."""
+    from coebslam_tpu_torch import entry as entry_mod
+    from coebslam_tpu_torch.optim import local_ba, pose_graph
+    from coebslam_tpu_torch.parallel import multihost, sharded_ba
+    ocfg, ores, _ = orbit_session
+    opt = ocfg.optimizer
+    n = MULTICHIP_RANKS
+
+    # a. the entry step on the card and on the CPU
+    fn, args = entry_mod.entry()
+    fast_cuda.LAUNCHES = 0
+    with torch.no_grad():
+        R_e, t_e, n_e = fn(*args)
+        torch.cuda.synchronize()
+        launches = fast_cuda.LAUNCHES
+        fn_c, args_c = entry_mod.entry(device="cpu")
+        R_c, t_c, n_c = fn_c(*args_c)
+        ms = _device_ms(torch, lambda: fn(*args), 20)
+    err = max(float((R_e.cpu() - R_c).abs().max()),
+              float((t_e.cpu() - t_c).abs().max()))
+    print(f"[17a] entry(): FAST launches {launches}; card vs CPU: pose "
+          f"{err:.3g} (tol {ENTRY_POSE_TOL}), inliers {int(n_e)} / "
+          f"{int(n_c)} (within 1); {ms:.4f} ms on the card (median of 20, "
+          f"queued behind a device-side sleep); on {card_line}", flush=True)
+    if launches != 1 or not err <= ENTRY_POSE_TOL \
+            or abs(int(n_e) - int(n_c)) > 1:
+        _fail(f"entry(): {launches} FAST launches, pose {err}, inliers "
+              f"{int(n_e)} / {int(n_c)}")
+
+    # b. the dry run of every multi-device path
+    iters = {"a": opt.local_ba_iters_first + opt.local_ba_iters_second,
+             "c": opt.global_ba_iters,
+             "d": opt.essential_graph_iters, "e_hybrid": opt.global_ba_iters,
+             "e_flat": opt.global_ba_iters,
+             "e_pose_graph": opt.essential_graph_iters}
+    dr = entry_mod.dryrun_multichip(n)
+    for part, secs in dr["seconds"].items():
+        k = dr["all_reduces"][part]
+        comm = (f"{k / iters[part]:.2f} all-reduces per GN iteration, "
+                f"{dr['all_reduce_bytes'][part] / k:.0f} bytes each on "
+                f"average" if part in iters else "no all-reduce")
+        print(f"[17b] dryrun part {part}: {secs:.3f} s on rank 0, {comm}, "
+              f"backend {dr['backend']}", flush=True)
+    print(f"[17b] dryrun_multichip({n}): per-frame counts {dr['counts']}, "
+          f"FAST launches {dr['frontend_launches']}, segment-sharded GBA "
+          f"vs 1-D {dr['gba_gap']:.3g} (tol {SHARD_POSE_TOL})", flush=True)
+    if dr["frontend_launches"] != n or dr["gba_gap"] > SHARD_POSE_TOL:
+        _fail(f"dryrun_multichip: {dr['frontend_launches']} FAST "
+              f"launches, gap {dr['gba_gap']}")
+
+    # c. the orbit's handed-off arena, segment-sharded over (2, 2)
+    arena, _ = handoff.to_arena(ores, ocfg)
+    prob, kfs, pts, seg = multihost.arena_to_ba_problem(
+        arena, ocfg, n_segments=2, pad_points_to=2 * n, device="cpu")
+    sh = sharded_ba.run_sharded(
+        "global", prob, opt, n, cam=ocfg.camera, hybrid=True, dcn_size=2,
+        axis=(multihost.DCN_AXIS, multihost.ICI_AXIS),
+        n_blocks_per_device=2)
+    prob_d = type(prob)(*[x.to(dev) for x in prob])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = local_ba.optimize_global_ba(prob_d, ocfg.camera, opt,
+                                      n_blocks=2 * n)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    res = sh["result"]
+    gap = max(float((res.kf_t - ref.kf_t.cpu()).abs().max()),
+              float((res.kf_R - ref.kf_R.cpu()).abs().max()))
+    pt_gap = float((res.pt_pos - ref.pt_pos.cpu()).norm(dim=-1).median())
+    agree = all(torch.equal(x[0], y) for x in (sh["rank_R"], sh["rank_t"])
+                for y in x)
+    K = len(kfs)
+    per = sh["all_reduce_bytes"] / max(sh["all_reduces"], 1)
+    print(f"[17c] orbit arena ({K} keyframes, {len(pts)} points, segments "
+          f"{[int((seg == i).sum()) for i in range(2)]}): sharded GBA over "
+          f"mesh {sh['mesh']} (dcn,ici), backend {sh['backend']}: "
+          f"{sh['seconds']:.3f} s on rank 0 against {ref_s:.3f} s in this "
+          f"process; poses vs the single solve {gap:.3g} (tol "
+          f"{SHARD_POSE_TOL}), median point gap {pt_gap:.3g} (tol "
+          f"{SHARD_POINT_GAP}); ranks bit-equal {agree}; "
+          f"{sh['all_reduces'] / opt.global_ba_iters:.2f} all-reduces per "
+          f"GN iteration, {per:.0f} bytes each on average (S "
+          f"{K * K * 36 * 4}, b {K * 6 * 4})",
+          flush=True)
+    if gap > SHARD_POSE_TOL or not pt_gap < SHARD_POINT_GAP or not agree:
+        _fail(f"orbit arena sharded GBA: gap {gap}, points {pt_gap}, ranks "
+              f"agree {agree}")
+
+    # d. the pose graph of the arena's keyframes over the ranks
+    pg, K_g, E_g = entry_mod.loop_graph(arena, n, "cpu")
+    rng = np.random.RandomState(7)
+    drift = torch.from_numpy(0.01 * rng.randn(K_g, 3).astype(np.float32))
+    drift[0] = 0.0
+    pg = pg._replace(t=pg.t + drift)
+    pgs = sharded_ba.run_sharded("pose_graph", pg, opt, n, fix_scale=True)
+    pg_ref = pose_graph.optimize_pose_graph(
+        type(pg)(*[x.to(dev) for x in pg]), opt, fix_scale=True)
+    pg_gap = max(float((pgs["result"].t - pg_ref.t.cpu()).abs().max()),
+                 float((pgs["result"].R - pg_ref.R.cpu()).abs().max()))
+    print(f"[17d] pose graph ({K_g} nodes, {E_g} edges) over {n} ranks, "
+          f"backend {pgs['backend']}: {pgs['seconds']:.3f} s on rank 0; vs "
+          f"the single-rank solve {pg_gap:.3g} (tol {SHARD_POSE_TOL}); "
+          f"{pgs['all_reduces'] / opt.essential_graph_iters:.2f} "
+          f"all-reduces per GN iteration (H {K_g * K_g * 49 * 4} bytes, b "
+          f"{K_g * 7 * 4}). NCCL across cards is not verified: this machine "
+          f"has {torch.cuda.device_count()} card(s)", flush=True)
+    if pg_gap > SHARD_POSE_TOL:
+        _fail(f"sharded pose graph: gap {pg_gap}")
+    return launches, dr
+
+
+def train_phase(torch, out_path):
+    """[18]: tools/train_detector.run on the card at TRAIN_DETECTOR."""
+    from coebslam_tpu_torch.models import detector as detector_mod, yolov5
+    from coebslam_tpu_torch.tools import train_detector
+    c = TRAIN_DETECTOR
+    peak_mib(torch)
+    td = train_detector.run(train_detector.parse_args(
+        ["--width", str(c["width"]), "--batch", str(c["batch"]), "--seqs",
+         str(c["seqs"]), "--frames", str(c["frames"]), "--steps",
+         str(c["steps"]), "--out", out_path]))
+    mem = peak_mib(torch)
+    losses = np.asarray(td["losses"])
+    variables, meta = detector_mod.load_variables_npz(out_path)
+    back = yolov5.from_flax_variables(variables)
+    same = back.keys() == td["state_dict"].keys() and all(
+        torch.equal(back[k], td["state_dict"][k]) for k in back)
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    print(f"[18] train_detector at width {c['width']}, batch {c['batch']}, "
+          f"input {train_detector.INPUT}, cut to {c['seqs']} sequences x "
+          f"{c['frames']} frames ({td['n_val']} held out) and {c['steps']} "
+          f"steps (the tool's defaults: 3 x 130, 700): rendered in "
+          f"{td['render_s']:.1f} s; loss {losses[0]:.4f} at step 0, "
+          f"{losses[-1]:.4f} at step {len(losses) - 1} (means of the first "
+          f"and last 10: {first:.4f}, {last:.4f}); {td['steps_per_s']:.2f} "
+          f"steps/s; held-out IoU {td['miou']:.3f} over {td['n_boxes']} "
+          f"boxes; peak device memory {mem:.1f} MiB; the .npz read back by "
+          f"load_variables_npz equals the trained state: {same} (width "
+          f"{float(meta['width'])})", flush=True)
+    if td["device"] != "cuda" or not np.isfinite(losses).all() \
+            or not last < first or not same:
+        _fail(f"train_detector: device {td['device']}, losses "
+              f"{first} -> {last}, file equal {same}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1987,11 +2178,12 @@ def main():
     rt_out, rt_launches, rt_syncs, rt_sites, rt_s, rt_mem = driver_phase(
         torch, fast_cuda, run_tum_rgbd.run, run_tum_rgbd.parse_args(
             [rep_root, "--boxes", rep_boxes, "--max-frames", str(N_HOST),
-             "--realtime", "--refine", "--out",
+             "--realtime", "--refine", "--hybrid-gba", "--out",
              os.path.join(files.name, "realtime")]))
     ds = driver_summary(rt_out)
     j = JAX_CPU_DRIVER_RT
-    print(f"[16c] run_tum_rgbd --realtime --refine --boxes on the {N_HOST} "
+    print(f"[16c] run_tum_rgbd --realtime --refine --hybrid-gba --boxes on "
+          f"the {N_HOST} "
           f"files (JAX package on CPU in brackets): frames OK "
           f"{ds['ok']}/{ds['n']} ({j['ok']}; gate >= "
           f"{DRIVER_RT_MIN_OK}), ATE {ds['ate_m'] * 100:.3f} cm "
@@ -2015,6 +2207,21 @@ def main():
     if rt_launches != ds["n"]:
         _fail(f"driver realtime: {rt_launches} FAST launches for "
               f"{ds['n']} frames")
+    hy, arena_rt = rt_out["hybrid"], rt_out["arena"]
+    hy_gap = max(float(np.abs(hy["kf_t"] - arena_rt.kf_t[hy["kfs"]]).max()),
+                 float(np.abs(hy["kf_R"] - arena_rt.kf_R[hy["kfs"]]).max()))
+    print(f"[16c] hybrid-mesh GBA: {len(hy['kfs'])} keyframes, mesh "
+          f"{hy['mesh']} (dcn,ici) of {hy['n_ranks']} rank(s), backend "
+          f"{hy['backend']}, segment point counts {hy['segment_counts']}, "
+          f"{hy['seconds']:.3f} s, {hy['all_reduces']} all-reduces "
+          f"({hy['all_reduce_bytes']} bytes); keyframe poses within "
+          f"{hy_gap:.3g} of the refine step's (limit {SHARD_POSE_TOL})",
+          flush=True)
+    if hy["n_ranks"] != torch.cuda.device_count() or hy_gap > SHARD_POSE_TOL \
+            or (hy["n_ranks"] <= torch.cuda.device_count()
+                and hy["backend"] != "nccl"):
+        _fail(f"hybrid-mesh GBA: {hy['n_ranks']} ranks, backend "
+              f"{hy['backend']}, pose gap {hy_gap}")
     lap("16c")
     # ---- 16d. the stereo and mono drivers on KITTI and EuRoC files
     ex_frames = example_frames(torch, synthetic, SE3, cam, dev)
@@ -2092,8 +2299,13 @@ def main():
             or not np.array_equal(back.children, tv["vocabulary"].children):
         _fail(f"train_vocab: {tv_launches} FAST launches, "
               f"{back.n_words} words read back")
-    files.cleanup()
     lap("16f")
+    entry_launches, dr = multichip_phase(
+        torch, fast_cuda, sessions["orbit"], handoff, card_line, dev)
+    lap("17")
+    train_phase(torch, os.path.join(files.name, "detector.npz"))
+    files.cleanup()
+    lap("18")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
@@ -2120,7 +2332,10 @@ def main():
                              "driver_realtime": rt_launches,
                              "driver_stereo": ex_launches["stereo"],
                              "driver_mono": ex_launches["mono"],
-                             "train_vocab": tv_launches},
+                             "train_vocab": tv_launches,
+                             "entry": entry_launches,
+                             "multichip_frontend":
+                                 dr["frontend_launches"]},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

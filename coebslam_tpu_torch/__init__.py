@@ -6,8 +6,9 @@ stream, tracking, keyframing and windowed BA), their maintenance program
 (BoW loop closing, the place bank, relocalization), the offline
 refinement of a finished session (handoff to a host map, global BA) and
 the host-orchestrated ``System`` (host tracker, covisibility mapper
-with culling) and its file-based entry points as PyTorch code on an
-NVIDIA GPU, with the FAST corner kernel written by hand in CUDA C++
+with culling) and its file-based entry points, multi-device bundle
+adjustment and detector training as PyTorch code on an NVIDIA GPU, with
+the FAST corner kernel written by hand in CUDA C++
 (``csrc/fast.cu``). Module paths mirror the JAX package so each
 counterpart is found under the same name; this package imports neither
 JAX nor the JAX package, nor PIL or PyYAML.
@@ -31,7 +32,10 @@ io         PNG codec (zlib and numpy), TUM, EuRoC and KITTI sequences,
            TUM and KITTI trajectory files, map checkpoints
 eval       ATE and RPE metrics
 examples   the offline drivers (rgbd_tum, stereo, mono, synthetic)
-tools      the replica writer and the vocabulary trainer
+tools      the replica writer, the vocabulary and the detector trainers
+parallel   multi-device BA over torch.distributed: meshes of ranks, the
+           sharded local and global BA and pose graph, the rank launcher
+entry      the driver's entry step and the multi-device dry run
 """
 
 import torch

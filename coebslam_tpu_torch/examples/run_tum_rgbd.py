@@ -25,7 +25,10 @@ Options:
   --refine           with --realtime: handoff and global BA of the
                      finished session, then KeyFrameTrajectory.txt and
                      the refined trajectory's ATE
-  --hybrid-gba       multi-device global BA: not ported yet (exits 1)
+  --hybrid-gba       with --realtime: the refine step (implied), then the
+                     segment-sharded global BA of the refined arena over
+                     a hybrid (dcn, ici) mesh of one rank per visible
+                     device (parallel/multihost.py, parallel/sharded_ba.py)
   --cpu              run on the CPU (default: CUDA, which must exist)
 
 The printed fps is the host clock around the tracking calls, PNG decoding
@@ -42,11 +45,6 @@ import time
 from typing import Optional
 
 import numpy as np
-
-HYBRID_GBA_MISSING = (
-    "--hybrid-gba (segment-sharded global BA over a device mesh) is not "
-    "ported yet: ROADMAP.md queue 1 item 7 (multi-device BA)")
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
@@ -123,9 +121,9 @@ def run(args: argparse.Namespace) -> dict:
     directory, the ATE (None without ground truth), the tracking seconds
     and fps, and: host mode the ``System`` and the per-frame states;
     realtime mode the ``finish()`` result and, with --refine, the refined
-    arena, keyframe ids, keyframes optimised and refined ATE."""
-    if args.hybrid_gba:
-        sys.exit(HYBRID_GBA_MISSING)
+    arena, keyframe ids, keyframes optimised and refined ATE; with
+    --hybrid-gba also ``hybrid``: the sharded solve's keyframes, poses,
+    mesh, segment point counts, ranks, backend and seconds."""
     from ..eval import ate
     from ..io import tum
     from ..utils.device import resolve_device
@@ -263,7 +261,7 @@ def _run_realtime(args, cfg, seq, n, lookup, detector, vocab, device,
               f"(median {r['median'] * 100:.2f} cm, {r['pairs']} pairs)")
     out = {"mode": "realtime", "result": res, "ate": r, "fps": fps,
            "first_s": first_s, "track_s": track_s}
-    if args.refine:
+    if args.refine or args.hybrid_gba:
         m, kf_ids, n_opt = handoff.refine(res, cfg, device=device)
         trajectory.save_tum(
             os.path.join(out_dir, "KeyFrameTrajectory.txt"),
@@ -276,7 +274,40 @@ def _run_realtime(args, cfg, seq, n, lookup, detector, vocab, device,
         if r2 is not None:
             print(f"refined ATE RMSE: {r2['rmse'] * 100:.2f} cm")
         out.update(arena=m, kf_ids=kf_ids, n_opt=n_opt, refined_ate=r2)
+    if args.hybrid_gba:
+        out["hybrid"] = hybrid_gba(m, cfg, device)
     return out
+
+
+def hybrid_gba(m, cfg, device) -> dict:
+    """The segment-sharded global BA of arena ``m`` over a hybrid (dcn, ici)
+    mesh of one rank per visible device (``torch.cuda.device_count()`` on
+    CUDA, one on the CPU), with dcn = max(2, n // 4) for n > 1; the points
+    padded to the mesh size x 2 blocks per rank. One rank solves in this
+    process, more through ``parallel.launch``. The arena is not written."""
+    import torch
+    from ..parallel import multihost, sharded_ba
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    shape = multihost.hybrid_shape(n, max(2, n // 4) if n > 1 else 1)
+    prob, kfs, pts, seg = multihost.arena_to_ba_problem(
+        m, cfg, n_segments=shape[0], pad_points_to=n * 2, device="cpu")
+    out = sharded_ba.run_sharded(
+        "global", prob, cfg.optimizer, n, cam=cfg.camera, device=device,
+        hybrid=True, dcn_size=shape[0],
+        axis=(multihost.DCN_AXIS, multihost.ICI_AXIS))
+    if not bool(np.isfinite(out["result"].kf_t.numpy()).all()):
+        raise RuntimeError("hybrid-mesh GBA: keyframe poses not finite")
+    counts = [int((seg == s).sum()) for s in range(shape[0])]
+    print(f"hybrid-mesh GBA: {len(kfs)} KFs / {len(pts)} points over mesh "
+          f"{out['mesh']} (dcn,ici); segment point counts {counts}",
+          flush=True)
+    res = out["result"]
+    return {"kfs": kfs, "kf_R": res.kf_R.numpy(), "kf_t": res.kf_t.numpy(),
+            "mesh": out["mesh"],
+            "segment_counts": counts, "n_ranks": n,
+            "backend": out["backend"], "seconds": out["seconds"],
+            "all_reduces": out["all_reduces"],
+            "all_reduce_bytes": out["all_reduce_bytes"]}
 
 
 def main(argv=None) -> int:

@@ -205,6 +205,28 @@ def init_random(model: nn.Module, generator: torch.Generator,
     return model.eval()
 
 
+def init_like_flax(model: nn.Module, generator: torch.Generator
+                   ) -> nn.Module:
+    """Initial weights drawn as the JAX package's Flax module draws its own
+    (the distributions, not the values): convolution kernels from Flax's
+    ``lecun_normal`` (a normal of variance 1 / fan_in truncated at two
+    standard deviations), biases zero, BatchNorm scale 1, bias 0, mean 0,
+    variance 1. The training tool starts from these."""
+    std_of_unit_trunc = 0.87962566103423978     # std of N(0,1) cut at +-2
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Conv2d):
+                std = math.sqrt(1.0 / mod.weight[0].numel()) \
+                    / std_of_unit_trunc
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+    return model
+
+
 @functools.lru_cache(maxsize=32)
 def level_constants(lvl: int, h: int, w: int, device: str):
     """The cell grid [1, h, w, 1, 2] (x, y) and the anchors [3, 2] of head
@@ -328,6 +350,39 @@ def from_flax_variables(variables) -> Dict[str, torch.Tensor]:
                 sd[".".join(mods + ["bn.num_batches_tracked"])] = \
                     torch.zeros((), dtype=torch.int64)
     return sd
+
+
+_FLAX_NAME = {v: k for k, v in _FLAX_LEAF.items()}
+
+
+def to_flax_variables(state_dict) -> dict:
+    """The inverse of ``from_flax_variables``: this module's ``state_dict``
+    as the JAX package's variables ({'params', 'batch_stats'}, nested
+    dicts of float32 numpy arrays, kernels HWIO), the layout that its
+    ``tools/train_detector.py`` saves and ``load_variables_npz`` reads."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, val in state_dict.items():
+        parts = key.split(".")
+        if parts[-1] == "num_batches_tracked":
+            continue
+        if parts[0] == "detect":
+            path = [f"detect{parts[1]}",
+                    {"weight": "kernel", "bias": "bias"}[parts[2]]]
+            coll = "params"
+        else:
+            mods = re.sub(r"(^|\.)(m)\.(\d+)(?=\.)", r"\1\2\3",
+                          ".".join(parts[:-2])).split(".")
+            leaf = _FLAX_NAME[".".join(parts[-2:])]
+            path = mods + list(leaf)
+            coll = "batch_stats" if leaf[1] in ("mean", "var") else "params"
+        a = val.detach().cpu().numpy().astype(np.float32)
+        if a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)                # OIHW -> HWIO
+        node = out[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = a
+    return out
 
 
 # (this module's name, ultralytics model.N index), in yaml order.

@@ -9,7 +9,9 @@ what the TPU runs fast; here the same values come from ordinary batched
 tensors in the natural [P, M, ...] layout. Summation order differs, so the
 values agree to float32 rounding, not bit for bit.
 ``_gn_iteration_chunked`` and ``optimize_global_ba`` are the global BA's
-engine (``slam/global_ba.py``).
+engine (``slam/global_ba.py``). ``reduce_fn(S, b)``, where the solvers take
+it, is the distributed-assembly hook of ``parallel/sharded_ba.py``: it sums
+each rank's partial reduced camera system over the ranks before the solve.
 """
 from __future__ import annotations
 
@@ -202,11 +204,17 @@ def _backsub(terms, dxi, pt_valid, pt_pos):
 
 
 def _gn_iteration(prob: BAProblem, cam: CameraConfig, use_huber: bool,
-                  chi2_mono: float, chi2_stereo: float,
-                  damping: float) -> BAProblem:
-    """One Schur-complement GN step; returns updated poses/points."""
+                  chi2_mono: float, chi2_stereo: float, damping: float,
+                  reduce_fn=None) -> BAProblem:
+    """One Schur-complement GN step; returns updated poses/points.
+
+    ``reduce_fn(S, b) -> (S, b)``: with the point axis split over ranks,
+    each rank assembles its partial reduced camera system and the hook sums
+    them (an all-reduce); the dense solve then runs on every rank alike."""
     S, b, terms = _assemble(prob, cam, use_huber, chi2_mono, chi2_stereo,
                             damping)
+    if reduce_fn is not None:
+        S, b = reduce_fn(S, b)
     dxi = _solve_cameras(S, b, prob.kf_fixed, prob.kf_valid, damping)
     new_pts = _backsub(terms, dxi, prob.pt_valid, prob.pt_pos)
     new_pose = se3.retract(SE3(prob.kf_R, prob.kf_t), dxi)
@@ -220,12 +228,14 @@ _POINT_FIELDS = ("pt_pos", "pt_valid", "obs_kf", "obs_uvr", "obs_w",
 def _gn_iteration_chunked(prob: BAProblem, cam: CameraConfig,
                           use_huber: bool, chi2_mono: float,
                           chi2_stereo: float, damping: float,
-                          n_blocks: int) -> BAProblem:
+                          n_blocks: int, reduce_fn=None) -> BAProblem:
     """One GN step over the point axis in ``n_blocks`` blocks: pass 1 sums
     the blocks' reduced camera systems (the Schur terms are separable by
     point, so the block sums are exact), pass 2 recomputes each block's
     point terms and back-substitutes its points. The reference's two
-    ``lax.scan``s are a loop over the blocks here."""
+    ``lax.scan``s are a loop over the blocks here. ``reduce_fn`` (see
+    ``_gn_iteration``) sums the block sums over the ranks; pass 2 stays
+    local."""
     K = prob.kf_R.shape[0]
     P = prob.obs_kf.shape[0]
     assert P % n_blocks == 0, (P, n_blocks)
@@ -241,6 +251,8 @@ def _gn_iteration_chunked(prob: BAProblem, cam: CameraConfig,
                               damping)
         S = S + Sb
         b = b + bb
+    if reduce_fn is not None:
+        S, b = reduce_fn(S, b)
     dxi = _solve_cameras(S, b, prob.kf_fixed, prob.kf_valid, damping)
     new_pts = torch.cat([
         _backsub(_point_terms(blk, cam, use_huber, chi2_mono, chi2_stereo,
@@ -251,13 +263,15 @@ def _gn_iteration_chunked(prob: BAProblem, cam: CameraConfig,
 
 
 def optimize_global_ba(prob: BAProblem, cam: CameraConfig,
-                       cfg: OptimizerConfig, n_blocks: int = 8) -> BAResult:
+                       cfg: OptimizerConfig, n_blocks: int = 8,
+                       reduce_fn=None) -> BAResult:
     """Full-map BA: ``global_ba_iters`` Huber GN iterations over the point
-    blocks, then the final outlier gate."""
+    blocks, then the final outlier gate. ``reduce_fn``: see
+    ``_gn_iteration``."""
     for _ in range(cfg.global_ba_iters):
         prob = _gn_iteration_chunked(prob, cam, True, cfg.chi2_mono,
                                      cfg.chi2_stereo, damping=1e-5,
-                                     n_blocks=n_blocks)
+                                     n_blocks=n_blocks, reduce_fn=reduce_fn)
     final_valid, chi2 = _gate(prob, cam, cfg.chi2_mono, cfg.chi2_stereo)
     return BAResult(kf_R=prob.kf_R, kf_t=prob.kf_t, pt_pos=prob.pt_pos,
                     obs_valid=final_valid, chi2=chi2)
@@ -271,14 +285,17 @@ def _gate(prob: BAProblem, cam: CameraConfig, chi2_m: float, chi2_s: float):
 
 
 def optimize_local_ba(prob: BAProblem, cam: CameraConfig,
-                      cfg: OptimizerConfig) -> BAResult:
-    """5 iterations, outlier gate, 10 iterations, final gate."""
+                      cfg: OptimizerConfig, reduce_fn=None) -> BAResult:
+    """5 iterations, outlier gate, 10 iterations, final gate.
+    ``reduce_fn``: see ``_gn_iteration``."""
     chi2_m, chi2_s = cfg.chi2_mono, cfg.chi2_stereo
     for _ in range(cfg.local_ba_iters_first):
-        prob = _gn_iteration(prob, cam, True, chi2_m, chi2_s, damping=1e-5)
+        prob = _gn_iteration(prob, cam, True, chi2_m, chi2_s, damping=1e-5,
+                             reduce_fn=reduce_fn)
     prob = prob._replace(obs_valid=_gate(prob, cam, chi2_m, chi2_s)[0])
     for _ in range(cfg.local_ba_iters_second):
-        prob = _gn_iteration(prob, cam, True, chi2_m, chi2_s, damping=1e-5)
+        prob = _gn_iteration(prob, cam, True, chi2_m, chi2_s, damping=1e-5,
+                             reduce_fn=reduce_fn)
     final_valid, chi2 = _gate(prob, cam, chi2_m, chi2_s)
     return BAResult(kf_R=prob.kf_R, kf_t=prob.kf_t, pt_pos=prob.pt_pos,
                     obs_valid=final_valid, chi2=chi2)

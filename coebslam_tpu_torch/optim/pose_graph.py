@@ -78,11 +78,12 @@ def optimize_pose_graph(prob: PoseGraphProblem, cfg: OptimizerConfig,
 
     ``fix_scale``: constrain every node's scale to its current value
     (RGB-D/stereo: the reference's bFixScale essential graph).
-    ``reduce_fn`` (distributed assembly) is not ported yet.
+    ``reduce_fn(H, b) -> (H, b)``: with the edge axis split over ranks,
+    each rank scatter-adds its edges' blocks into a partial [K, K, 7, 7]
+    system and the hook sums them (an all-reduce) before the free mask,
+    the damping and the fixed-scale rows; the dense solve then runs on
+    every rank alike.
     """
-    if reduce_fn is not None:
-        raise NotImplementedError("reduce_fn: multi-device pose-graph "
-                                  "assembly is not ported yet")
     K = prob.s.shape[0]
     iters = cfg.essential_graph_iters if n_iters is None else n_iters
     dev, f32 = prob.R.device, prob.R.dtype
@@ -112,6 +113,8 @@ def optimize_pose_graph(prob: PoseGraphProblem, cfg: OptimizerConfig,
         b = torch.zeros((K, 7), dtype=f32, device=dev)
         b.index_add_(0, ii, -torch.einsum("eri,e,er->ei", Ji, w, r))
         b.index_add_(0, jj, -torch.einsum("eri,e,er->ei", Jj, w, r))
+        if reduce_fn is not None:
+            H, b = reduce_fn(H, b)
 
         H = H * f[:, None, None, None] * f[None, :, None, None]
         H[diag, diag] += damp

@@ -13,6 +13,7 @@ Run from the repository root:
     python3 cpu_reference.py {jax,port} {host-loop-full,host-reloc-full}
     python3 cpu_reference.py {jax,port} {host-stereo,host-mono,host-flow}
     python3 cpu_reference.py {jax,port} {host-stereo,host-mono,host-flow}-full
+    python3 cpu_reference.py jax train-detector [STEPS]
 
 Drives one package on the CPU over one scene at the configuration of the
 matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
@@ -83,6 +84,14 @@ matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
   its gates' numbers and the failed gates; mono adds the initialisation
   attempts and the relocalize calls, flow the frames on which the
   walker's box was dynamic.
+- ``train-detector [STEPS]``: the JAX package's tools/train_detector.py
+  at the walker detector's width (``--width 0.25 --cpu``, default 700
+  steps, its own 3 x 130 rendered frames), run as a subprocess with its
+  output file in a temporary directory (never over the committed
+  artifact): the loss at every step it prints and the held-out mean IoU,
+  the quality to set beside the port's run of the same tool on the card
+  (``python3 -m coebslam_tpu_torch.tools.train_detector --width 0.25``)
+  and the committed artifact's recorded ``__miou__``.
 - ``refine orbit|circuit`` ([10]): the session of [4] or [6], then the
   handoff (``to_arena``), global BA and ``refined_trajectory``: the
   arena's keyframes and points, the observations cut (``truncated_obs``),
@@ -848,8 +857,37 @@ def run_port(scene, refine, n=None):
     return _summary(rt, res, seen, gt, ate, 8 if scene == "circuit" else 5)
 
 
+def run_jax_train_detector(steps: int) -> dict:
+    """The JAX tool's training run (see ``train-detector`` above)."""
+    import re
+    import subprocess
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "train_detector.py"),
+             "--width", "0.25", "--cpu", "--steps", str(steps), "--out",
+             os.path.join(tmp, "detector.npz")],
+            capture_output=True, text=True, cwd=ROOT)
+    if proc.returncode != 0:
+        sys.exit(proc.stdout + proc.stderr)
+    miou = re.search(r"held-out mean IoU vs GT: ([0-9.]+) over (\d+)",
+                     proc.stdout)
+    return {"width": 0.25, "steps": steps,
+            "losses": {int(k): float(v) for k, v in re.findall(
+                r"step (\d+): loss ([0-9.]+)", proc.stdout)},
+            "miou": float(miou.group(1)), "n_boxes": int(miou.group(2))}
+
+
 def main():
     args = sys.argv[1:]
+    if args[:2] == ["jax", "train-detector"] and len(args) <= 3:
+        t0 = time.time()
+        out = run_jax_train_detector(int(args[2]) if len(args) == 3
+                                     else 700)
+        out.update(package="jax", scene="train-detector",
+                   seconds=time.time() - t0)
+        print(json.dumps(out))
+        return
     refine = len(args) == 3 and args[1] == "refine"
     if refine:
         args = [args[0], args[2]]

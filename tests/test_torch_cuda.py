@@ -1,8 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels against
 their plain PyTorch versions, and the maintenance program, the detector,
 the global BA, the stereo frame, the two-view initializer, the host
-System, RANSAC EPnP, the Sim3 refinement and the LK flow motion check
-against their CPU runs, on the card. Without a card they skip.
+System, RANSAC EPnP, the Sim3 refinement, the LK flow motion check and
+the entry step against their CPU runs, the multi-device dry run over two
+ranks sharing the card, and detector training, on the card. Without a
+card they skip.
 
 They import neither JAX nor the JAX package, so they also run on a machine
 that has only PyTorch (``--noconftest`` skips the JAX set-up of
@@ -578,3 +580,53 @@ def test_tum_rgbd_driver_on_card(card, tmp_path):
     assert out["ate"]["rmse"] < 0.02
     rows = np.loadtxt(tmp_path / "out" / "CameraTrajectory.txt", ndmin=2)
     assert rows.shape == (5, 8)
+
+
+# --------------------------------------------------------------------- #
+# the entry step, the multi-device dry run and detector training
+# --------------------------------------------------------------------- #
+
+def test_entry_on_card_matches_cpu(card):
+    """entry()'s fused front-end + track step on the card: one FAST
+    launch; pose within 1e-4 and inliers within 1 of the CPU run."""
+    from coebslam_tpu_torch import entry
+    fn, args = entry.entry()
+    fast_cuda.LAUNCHES = 0
+    with torch.no_grad():
+        R, t, n = fn(*args)
+        torch.cuda.synchronize()
+        assert fast_cuda.LAUNCHES == 1
+        fn_c, args_c = entry.entry(device="cpu")
+        R_c, t_c, n_c = fn_c(*args_c)
+    assert torch.allclose(R.cpu(), R_c, atol=1e-4)
+    assert torch.allclose(t.cpu(), t_c, atol=1e-4)
+    assert abs(int(n) - int(n_c)) <= 1
+
+
+def test_dryrun_multichip_two_ranks_on_one_card(card):
+    """dryrun_multichip(2): two ranks share the card over gloo (NCCL
+    refuses two ranks on one device); each rank's frame makes one FAST
+    launch; (e)'s segment-sharded GBA equals the 1-D mesh's."""
+    from coebslam_tpu_torch import entry
+    out = entry.dryrun_multichip(2)
+    assert out["backend"] == "gloo"
+    assert out["frontend_launches"] == 2
+    assert out["gba_gap"] <= 2e-3
+    assert out["segments"] == [8000, 8000]
+
+
+def test_train_detector_twenty_steps_on_card(card, tmp_path):
+    """tools/train_detector on the card, 20 steps at width 0.25 on one
+    40-frame sequence: finite losses that fall (mean of the last 5 below
+    the first 5), and the file read back equal to the trained state."""
+    from coebslam_tpu_torch.models import detector as tdet, yolov5
+    from coebslam_tpu_torch.tools import train_detector
+    path = str(tmp_path / "det.npz")
+    out = train_detector.run(train_detector.parse_args(
+        ["--width", "0.25", "--seqs", "1", "--frames", "40", "--steps",
+         "20", "--out", path]))
+    losses = np.asarray(out["losses"])
+    assert out["device"] == "cuda" and np.isfinite(losses).all()
+    assert losses[-5:].mean() < losses[:5].mean(), losses
+    back = yolov5.from_flax_variables(tdet.load_variables_npz(path)[0])
+    assert all(torch.equal(back[k], out["state_dict"][k]) for k in back)

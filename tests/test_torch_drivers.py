@@ -98,11 +98,35 @@ def test_tum_rgbd_driver(mode, replica_files, tmp_path):
         assert "refined ATE RMSE" in r.stdout, r.stdout
 
 
-def test_tum_rgbd_hybrid_gba_is_refused(replica_files):
-    r = _run(["coebslam_tpu_torch.examples.run_tum_rgbd", replica_files,
-              "--cpu", "--realtime", "--hybrid-gba"])
-    assert r.returncode != 0
-    assert "queue 1 item 7" in r.stderr, r.stderr
+def test_tum_rgbd_hybrid_gba(tmp_path, capsys):
+    """--realtime --hybrid-gba in process on 8 replica frames (a keyframe
+    at most every 2 frames, so the refine step has keyframes to optimise):
+    the refine step runs, then the segment-sharded global BA over a
+    (1, 1) mesh prints the hybrid-mesh line, and its keyframe poses equal
+    the refine step's global BA within 2e-3 (it starts from them, so the
+    solve has converged)."""
+    from coebslam_tpu_torch.examples import run_tum_rgbd
+    root = str(tmp_path / "rep")
+    replica.write(root, **HOST_SCHEDULE, frames=range(8), device="cpu")
+    settings = tmp_path / "kf2.yaml"
+    settings.write_text("tracking:\n  max_frames_between_kf: 2\n")
+    out = run_tum_rgbd.run(run_tum_rgbd.parse_args(
+        [root, "--cpu", "--boxes", os.path.join(root, "boxes.txt"),
+         "--realtime", "--hybrid-gba", "--settings", str(settings),
+         "--out", str(tmp_path / "out")]))
+    printed = capsys.readouterr().out
+    h, m = out["hybrid"], out["arena"]
+    assert out["n_opt"] >= 3, printed
+    line = [ln for ln in printed.splitlines()
+            if ln.startswith("hybrid-mesh GBA:")]
+    assert line == [f"hybrid-mesh GBA: {len(h['kfs'])} KFs / "
+                    f"{sum(h['segment_counts'])} points over mesh (1, 1) "
+                    f"(dcn,ici); segment point counts "
+                    f"{h['segment_counts']}"], printed
+    assert h["mesh"] == (1, 1) and h["n_ranks"] == 1
+    np.testing.assert_allclose(h["kf_t"], m.kf_t[h["kfs"]], atol=2e-3)
+    np.testing.assert_allclose(h["kf_R"], m.kf_R[h["kfs"]], atol=2e-3)
+    assert (tmp_path / "out" / "KeyFrameTrajectory.txt").exists()
 
 
 def test_make_tum_replica(tmp_path):
