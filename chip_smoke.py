@@ -82,9 +82,9 @@ Phases (each one failing the run with a non-zero exit when it fails):
      launched twice per frame (left and right). Prints keyframes, live
      points, fps, host syncs per frame and peak device memory.
  12. Monocular at full width (tests/test_realtime_mono.py's scene without
-     its cut): RealtimeSlam.track_mono over the first 30 of the 60 frames
+     its cut): RealtimeSlam.track_mono over the first 20 of the 60 frames
      of a 0.8 m orbit of the room (the script's time; cpu_reference.py jax
-     mono 30). Initialised by frame 10, at most 3 frames lost after it, at
+     mono 20). Initialised by frame 10, at most 3 frames lost after it, at
      least 3 keyframes, Sim3-aligned ATE < 5 cm, one kernel launch per
      frame. Prints the initialising frame, H or F, the points triangulated,
      the time of one initialisation attempt (CUDA events around one
@@ -92,8 +92,9 @@ Phases (each one failing the run with a non-zero exit when it fails):
      its host syncs counted), fps, syncs per frame and peak device memory.
  13. The host-orchestrated System (slam/system.py: Tracker + LocalMapper,
      synchronous mapping, no vocabulary, no detector; SystemConfig() at full
-     width) on the first 60 frames of the 400-frame TUM replica (seed 0),
-     which [16a] wrote as TUM files, fed by the offline driver
+     width) on the first 30 frames of the 400-frame TUM replica (seed 0;
+     cut from bench.py's 60 for the script's time; cpu_reference.py jax
+     host-replica 30), which [16a] wrote as TUM files, fed by the offline driver
      (examples/run_tum_rgbd.run, host mode, --boxes: io/tum.load_frame,
      depth d16 / 5000, the walker's boxes looked up within 0.03 s). At
      most 5 frames lost, ATE < 8 cm (tests/test_tum_replica.py::
@@ -157,9 +158,9 @@ Phases (each one failing the run with a non-zero exit when it fails):
         System in localization mode, and [13]'s last frame tracked: OK
         with > 100 inliers, no keyframe added.
  16. The file-based entry points (PNG through io/png.py, no PIL):
-     a. replica.write: [13]'s 60 frames rendered on the card and written as
-        a TUM sequence (seconds, MiB); frames 0 and 59 decode to
-        replica.generate's arrays exactly.
+     a. replica.write: the replica's first 60 frames rendered on the card
+        and written as a TUM sequence (seconds, MiB); frames 0 and 59
+        decode to replica.generate's arrays exactly.
      b. [13]'s CameraTrajectory.txt and KeyFrameTrajectory.txt read back
         (io/trajectory.load_tum: a row per frame and per keyframe) and
         their RPE against the ground truth (eval/rpe).
@@ -207,9 +208,45 @@ Phases (each one failing the run with a non-zero exit when it fails):
      script's time to 2 sequences x 40 frames and 100 steps, the JAX tool
      runs 3 x 130 and 700): the loss at the first and last step, steps/s,
      the held-out IoU, peak device memory, and the written .npz read back
-     by models.detector.load_variables_npz equal to the trained state.
-     Gates: every loss finite, the mean of the last 10 below that of the
-     first 10, training on the card.
+     by models.detector.load_variables_npz equal to the trained state,
+     and the SHA-1 of the losses and trained weights (the tool trains
+     deterministically, so it is the same in every run of one tree on one
+     card). Gates: every loss finite, the mean of the last 10 below that of
+     the first 10, training on the card.
+ 19. The realtime place bank (rt_loop_scenes.py: tests/test_place_bank.py's
+     scenes, an 8-row keyframe ring, bank_cap 64, the scene's own
+     vocabulary trained on the card, maintenance every frame):
+     a. [6]'s drifted circuit, and its odometry twin without a vocabulary:
+        the ring wraps 3 times (keyframes >= 24), bank entries > 8, a bank
+        closure applied to a keyframe more than 8 older, the revisit gap
+        below 0.6 x the twin's and the ATE within 1.1 x + 0.5 cm of it.
+     b. The circuit's first half, 8 black frames, frames 6-15 again: a
+        bank relocalization, >= 8 of the 10 revisit frames tracked, their
+        median centre error below 30 cm.
+     The odometry twin and (b) run in two more processes beside (a)
+     (``--rt-bank-session``), for the script's time, so [19]'s seconds
+     and host ms carry their contention. Prints the JAX package's CPU
+     values beside each gate, the bank closure's and the bank
+     relocalization's dispatch (host ms and device span) and one FAST
+     launch per frame.
+ 20. The monocular Sim3 loop closure (host_sensor_scenes.py), run after
+     [21] on its System: no rendered circuit makes the JAX package's
+     monocular System close a loop (ROADMAP queue 4), so the map's newest
+     keyframe and the points it observes are moved by a similarity of
+     scale 1.2 (shared points copied), as scale drift leaves a place the
+     camera returns to, and the loop closer closes it against the oldest
+     keyframe: compute_sim3 with scale (S12's scale within 0.05 of 1.2),
+     correct with the free-scale pose graph and the global BA; the
+     keyframes' Sim3 ATE after the closure below 0.8 x the drifted one.
+     Prints the closure's stall by stage (host ms and host syncs of
+     compute_sim3, correct, its pose graph and global BA).
+ 21. The host System's recovery through the Relocalizer's EPnP branch
+     (host_sensor_scenes.py): [15b]'s monocular System at full width over
+     frames 0-45 of the room's orbit at 1.2 m radius, 3 black frames,
+     then frame 15, which lies beyond the fused step's widened gate: OK,
+     LOST, OK within 15 cm of the centre the System gave frame 15 before, the return taken by the
+     Relocalizer through EPnP (its RANSACs counted); the relocalize call's
+     ms and host syncs; one FAST launch per frame.
 Each of [4], [6]-[15] and [16c] prints the JAX package's result on the CPU
 for the same scene and configuration beside its own, and the peak device
 memory.
@@ -219,6 +256,7 @@ The line before the last is the kernel table as JSON; the last line is
 script exits with code 2 and prints no result.
 """
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -230,17 +268,20 @@ import warnings
 import numpy as np
 
 from host_sensor_scenes import (
+    HOST_EPNP_RETURN, HOST_EPNP_TRACK, HOST_EPNP_VOCAB_FRAMES,
     HOST_FLOW_MAX_LOST, HOST_FLOW_ORBIT, HOST_FLOW_WALKER,
     HOST_FLOW_ATE_LIMIT_M, HOST_MONO_ATE_LIMIT_M, HOST_MONO_BLACK,
-    HOST_MONO_FIRST_OK_MAX, HOST_MONO_MAX_LOST_AFTER, HOST_MONO_MIN_POINTS,
+    HOST_MONO_FIRST_OK_MAX, HOST_MONO_LOOP_DRIFT, HOST_MONO_LOOP_GAIN,
+    HOST_MONO_MAX_LOST_AFTER, HOST_MONO_MIN_POINTS,
     HOST_MONO_RETURN, HOST_MONO_RETURN_LIMIT_M, HOST_MONO_TRACK,
     HOST_MONO_VOCAB, HOST_MONO_VOCAB_FRAMES, HOST_STEREO_ATE_LIMIT_M,
     HOST_STEREO_MAX_NOT_OK, HOST_STEREO_ORBIT, N_HOST_FLOW,
-    host_flow_config, host_flow_failures, host_flow_frames,
-    host_flow_summary, host_mono_config, host_mono_failures,
+    host_epnp_failures, host_epnp_frames, host_flow_config,
+    host_flow_failures, host_flow_frames, host_flow_summary,
+    host_mono_config, host_mono_failures, host_mono_frame_of,
     host_stereo_config, host_stereo_failures, host_stereo_frames,
     host_stereo_summary, pose_centres, run_host_flow, run_host_mono,
-    run_host_stereo)
+    run_host_stereo, run_mono_loop)
 from host_bow_scenes import (HOST_LOOP_VOCAB_FRAMES, HOST_LOOP_VOCAB,
                              HOST_LOOP_FIRST_MIN, HOST_LOOP_GAIN,
                              HOST_RELOC_ORBIT, HOST_RELOC_TRACK,
@@ -254,6 +295,11 @@ from host_bow_scenes import (HOST_LOOP_VOCAB_FRAMES, HOST_LOOP_VOCAB,
                              host_reloc_failures, watch_calls, closure_stages,
                              pnp_scene, RELOC_ATTEMPTS, reloc_calls,
                              reloc_truth)
+from rt_loop_scenes import (
+    BANK_LIMITS, BANK_RELOC_BLACK, BANK_VOCAB, CIRCUIT_LIMITS,
+    bank_loop_failures, bank_loop_summary, bank_reloc_failures,
+    bank_reloc_summary, bank_vocab_frames, centres, circuit_config,
+    loop_scene, run_bank_reloc, run_realtime)
 
 N_FRAMES = 150
 ATE_LIMIT_M = 0.025
@@ -287,20 +333,13 @@ JAX_CPU_REFINE = {
                     ate_refined_m=0.062603),
 }
 REFINED_KF_ATE_LIMIT_M = 0.02    # tests/test_handoff.py
-# [11] and [12] (cpu_reference.py jax stereo 60, jax mono 30).
+# [11] and [12] (cpu_reference.py jax stereo 60, jax mono 20).
 JAX_CPU_STEREO = dict(ok=60, ate_m=0.010027, n_kf=6, live_points=1403)
-JAX_CPU_MONO = dict(first_ok=1, lost_after=0, ok=29, ate_sim3_m=0.009519,
-                    n_kf=7, init="frame 1, homography, 602 triangulated")
+JAX_CPU_MONO = dict(first_ok=1, lost_after=0, ok=19, ate_sim3_m=0.009329,
+                    n_kf=6, init="frame 1, homography, 602 triangulated")
 MEM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 L2_FLUSH_BYTES = 128 << 20   # written before a cold call: over twice the L2
-# The loop circuit's configuration (bench.py run_loop_event), for either
-# package's config module (circuit_config) and RTLimits (**CIRCUIT_LIMITS).
-CIRCUIT_ORB = dict(max_keypoints=1024, n_levels=4, n_features=1000)
-CIRCUIT_TRACKING = dict(max_frames_between_kf=4,
-                        max_translation_per_frame=0.5)
-CIRCUIT_LIMITS = dict(max_kf=64, spawn_per_kf=256, ba_window=6,
-                      local_window=6, max_frames=256)
 # The self-detect orbit (bench.py _own_detector, run_realtime_selfdetect).
 DETECTOR_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "artifacts", "detector_walker.npz")
@@ -323,9 +362,9 @@ STEREO_ATE_LIMIT_M = 0.05
 # [12]: monocular (tests/test_realtime_mono.py at full width): the room
 # without the walker, a 0.8 m orbit for initialisation parallax.
 N_MONO = 60
-# The script's cut, for its time: the first 30 frames, the
+# The script's cut, for its time: the first 20 frames, the
 # initialisation on frame 1 and the tracking after it.
-N_MONO_RUN = 30
+N_MONO_RUN = 20
 MONO_RADIUS = 0.8
 MONO_FIRST_OK_MAX = 10
 MONO_MAX_LOST_AFTER = 3
@@ -335,11 +374,14 @@ MONO_ATE_LIMIT_M = 0.05          # Sim3-aligned, tracked frames only
 # configuration and gates): the first N_HOST frames of the 400-frame
 # replica schedule, seed 0.
 N_HOST = 60                      # bench.py REPLICA_HOST_FRAMES
+# [13] tracks the first N_HOST_RUN of the files [16a] writes, for the
+# script's time ([16c] runs all N_HOST).
+N_HOST_RUN = 30
 HOST_SCHEDULE = dict(n_frames=400, seed=0)
 HOST_MAX_LOST = 5
 HOST_ATE_LIMIT_M = 0.08
-JAX_CPU_HOST = dict(ok=60, lost=0, ate_m=0.002227, n_kf=9, live_points=811,
-                    local_ba=11, culled_kf=4, culled_pt=825)
+JAX_CPU_HOST = dict(ok=30, lost=0, ate_m=0.002090, n_kf=5, live_points=479,
+                    local_ba=4, culled_kf=1, culled_pt=809)
 # The JAX package on the CPU, same scenes and configurations
 # (cpu_reference.py jax host-loop|host-reloc).
 # [16]: the file-based entry points.
@@ -370,6 +412,14 @@ JAX_CPU_HOST_RELOC = dict(
     return_inliers=387, reloc_calls="3 (the black frames; no candidate)",
     direct_horn=dict(inliers=336, centre_err_m=0.002374),
     direct_epnp=dict(inliers=336, centre_err_m=0.002208))
+# [19] (rt_loop_scenes.py; cpu_reference.py jax rt-bank-loop,
+# jax rt-bank-reloc).
+JAX_CPU_RT_BANK_LOOP = dict(ok=110, n_kf=47, bank_entries=47,
+                            n_bank_loops=1, applied_gaps=[40],
+                            gap_m=0.009882, gap_odo_m=0.069024,
+                            ate_m=0.074942, ate_odo_m=0.077598)
+JAX_CPU_RT_BANK_RELOC = dict(n_bank_reloc=1, revisit_ok=9,
+                             median_err_m=0.026713)
 # [15] (host_sensor_scenes.py): the host System's stereo, monocular and
 # flow entries at full width; the JAX package on the CPU, same scenes and
 # configurations (cpu_reference.py jax host-stereo-full|host-mono-full|
@@ -383,6 +433,17 @@ JAX_CPU_HOST_MONO = dict(
     reloc="3 (the black frames; no candidate)",
     direct_epnp=dict(ok=True, candidates_tried=1, n_inliers=435,
                      centre_err_m=0.001252))
+# [20] (cpu_reference.py jax host-mono-loop).
+JAX_CPU_HOST_MONO_LOOP = dict(
+    pair=[7, 0], debug={"stage": "accepted", "n1": 269, "n2": 500,
+                        "n_match": 172, "ransac_inl": 172, "sim3_inl": 172,
+                        "total": 285},
+    scale=1.199822, drifted_m=0.050312, after_m=0.004993)
+# [21] (cpu_reference.py jax host-epnp-reloc).
+JAX_CPU_HOST_EPNP = dict(first_ok=1, lost_after=0, n_kf=8,
+                         ate_sim3_m=0.008307, return_inliers=372,
+                         return_err_m=0.005601,
+                         return_reloc=[(True, 1, "epnp", 252)], return_pnp=1)
 JAX_CPU_HOST_FLOW = dict(ok=25, lost=0, ate_m=0.004600, n_kf=13,
                          walker=[8, 10, 11, 12, 13, 14, 15, 16, 17, 18])
 HOST_FLOW_PAIR = 12              # [15c]'s frame pair held against the CPU
@@ -533,15 +594,6 @@ def _device_ms(torch, fn, n, flush=None):
     return float(np.median(times))
 
 
-def circuit_config(config):
-    """The loop circuit's SystemConfig from ``config``, either package's
-    config module."""
-    return config.SystemConfig(
-        camera=config.CameraConfig(), orb=config.OrbConfig(**CIRCUIT_ORB),
-        tracking=config.TrackingConfig(**CIRCUIT_TRACKING),
-        use_dynamic_filtering=False)
-
-
 def stereo_config(config):
     """[11]'s SystemConfig from either package's config module: ORB and
     limits at their defaults, a keyframe at least every 10 frames."""
@@ -613,8 +665,8 @@ def mono_summary(ok, est, gt, ate):
 def time_dispatches(torch, rt, keep=None):
     """Time each maintenance dispatch of ``rt`` without draining the card:
     host ms of the call, CUDA events recorded before and after it, the
-    host's keyframe count, and the event and relocalization counters
-    before and after, kept on the card. ``dispatch_summary`` reads them
+    host's keyframe count, and the event, relocalization, bank closure and
+    bank relocalization counters before and after, kept on the card. ``dispatch_summary`` reads them
     after the run. ``keep(args, out)``, when given, sees every dispatch."""
     rec = []
     step = rt.maint.step
@@ -626,8 +678,10 @@ def time_dispatches(torch, rt, keep=None):
         out = step(st, ms, seed, **kw)
         b.record()
         rec.append(((time.perf_counter() - t0) * 1e3, a, b, kw.get("n_kf"),
-                    torch.stack([ms.n_events, ms.n_reloc]),
-                    torch.stack([out[1].n_events, out[1].n_reloc])))
+                    torch.stack([ms.n_events, ms.n_reloc, ms.n_bank_loops,
+                                 ms.n_bank_reloc]),
+                    torch.stack([out[1].n_events, out[1].n_reloc,
+                                 out[1].n_bank_loops, out[1].n_bank_reloc])))
         if keep is not None:
             keep((st, ms, seed, kw), out)
         return out
@@ -656,25 +710,19 @@ def dispatch_summary(rec):
     return out
 
 
+def bank_dispatches(rec, which):
+    """Host ms and device span of the dispatches of a ``time_dispatches``
+    record that applied a bank closure (``which`` 2) or a bank
+    relocalization (3)."""
+    return [(round(r[0], 2), round(r[1].elapsed_time(r[2]), 2))
+            for r in rec if bool(r[5][which] != r[4][which])]
+
+
 def dispatch_line(d):
     return "; ".join(
         f"{what}: no-event median {d[k]['no_event_median_ms']:.2f} ms, max "
         f"{d[k]['max_ms']:.2f} ms, with an event {d[k]['event_ms']} ms"
         for k, what in (("host", "host"), ("span", "device span")))
-
-
-def loop_scene(device, sched, bias, synthetic, cam):
-    """Frames ``sched`` of the circuit (grey, depth x ``bias``) rendered on
-    the card, and their ground-truth camera centres."""
-    planes = synthetic.six_wall_room(device=device)
-    poses = synthetic.circuit_poses(max(sched) + 1)
-    frames = []
-    for i in sched:
-        g, d = synthetic.render(cam, poses[i], planes)[:2]
-        frames.append((g, d * bias))
-    gt = np.asarray([-poses[i].R.numpy().T @ poses[i].t.numpy()
-                     for i in sched])
-    return frames, gt
 
 
 def replica_host_frames(replica, n, device):
@@ -813,18 +861,6 @@ def write_example_sequences(png, frames, root):
             f.write(f"{stamp},{stamp}.png\n")
             png.write(os.path.join(cam0, f"{stamp}.png"), gl)
     return kroot, eroot
-
-
-def run_maintained(rt, frames):
-    """Track ``frames`` (grey, depth pairs on the card) at 30 fps stamps."""
-    for i, (g, d) in enumerate(frames):
-        rt.track(g, d, stamp=i / 30.0)
-    rt.block()
-    return rt.finish()
-
-
-def centres(res):
-    return np.asarray([-R.T @ t for R, t in zip(res["R"], res["t"])])
 
 
 def walker_detector(config, detector_mod, dyn_cfg, **kw):
@@ -1244,6 +1280,130 @@ def host_mono_phase(torch, fast_cuda, config, extractor, vocabulary,
     return launches, n
 
 
+def host_epnp_phase(torch, fast_cuda, config, extractor, vocabulary,
+                    synthetic, System, ate, dev, card_line):
+    """[21]: the host mono System's recovery through the Relocalizer's EPnP
+    branch (host_sensor_scenes.py): [15b]'s configuration at full width
+    over frames 0-45 of the 1.2 m orbit, a blackout, then frame 15 again,
+    beyond the fused step's widened gate. Returns (FAST launches, frames, the
+    System, the true centre of a keyframe of its map)."""
+    cfg = host_mono_config(config)
+    frames, gt = host_epnp_frames(synthetic, cfg.camera, dev)
+    t0 = time.perf_counter()
+    voc = _vocabulary_of(extractor, vocabulary, cfg, [(g,) for g in frames],
+                         HOST_EPNP_VOCAB_FRAMES, HOST_MONO_VOCAB)
+    print(f"[21] scene vocabulary ({voc.n_words} words) trained in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sysm = System(cfg, vocabulary=voc)
+    rec = watch_calls([], sysm.relocalizer,
+                      RELOC_ATTEMPTS["port"] + ("relocalize",))
+    mark = []
+    fast_cuda.LAUNCHES = 0
+    torch.cuda.synchronize()
+    with count_host_syncs(torch) as sites:
+        t0 = time.perf_counter()
+        s = run_host_mono(sysm, frames, torch.zeros_like(frames[0]), gt,
+                          ate, HOST_EPNP_RETURN,
+                          before_return=lambda: mark.append(len(rec)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = fast_cuda.LAUNCHES
+    n = HOST_EPNP_TRACK + HOST_MONO_BLACK + 1
+    back = rec[mark[0]:]
+    s["return_reloc"] = calls = reloc_calls(back)
+    s["return_pnp"] = sum("pnp" in r[0] for r in back)
+    j = JAX_CPU_HOST_EPNP
+    last = calls[-1] if calls else {}
+    print(f"[21] host mono kidnap beyond the widened gate (frames 0-"
+          f"{HOST_EPNP_TRACK - 1}, {HOST_MONO_BLACK} black, frame "
+          f"{HOST_EPNP_RETURN} again; JAX package on CPU in brackets): first "
+          f"OK {s['first_ok']} ({j['first_ok']}), lost after it "
+          f"{s['lost_after']} ({j['lost_after']}), last tracked frame "
+          f"{s['last']}, keyframes {s['n_kf']} ({j['n_kf']}), Sim3 ATE "
+          f"{s['ate_sim3_m'] * 100:.3f} cm ({j['ate_sim3_m'] * 100:.3f}); "
+          f"after the blackout {s['after_black']}, on the return "
+          f"{s['return_state']} with {s['return_inliers']} inliers "
+          f"({j['return_inliers']}), centre {s['return_err_m'] * 100:.3f} cm "
+          f"from frame {HOST_EPNP_RETURN}'s ({j['return_err_m'] * 100:.3f}; "
+          f"limit {HOST_MONO_RETURN_LIMIT_M * 100:.0f} cm)", flush=True)
+    print(f"[21] the return frame's relocalize calls (ok, candidates tried, "
+          f"branch, inliers): "
+          f"{[(c['ok'], c['candidates_tried'], c['branch'], c['n_inliers']) for c in calls]} "
+          f"({j['return_reloc']}); EPnP RANSACs (ransac_epnp calls) "
+          f"counted {s['return_pnp']} ({j['return_pnp']}); the recovering "
+          f"relocalize call {last.get('ms', float('nan')):.1f} ms with "
+          f"{last.get('syncs')} host syncs {last.get('sites')}; the whole "
+          f"return frame {s['return_ms']:.1f} ms; FAST launches {launches} "
+          f"for {n} frames; host syncs {sum(sites.values())} in {n} frames; "
+          f"{secs:.1f} s; on {card_line}", flush=True)
+    bad = host_epnp_failures(s)
+    if launches != n:
+        bad.append(f"{launches} FAST launches for {n} frames")
+    if bad:
+        _fail(f"host EPnP recovery: {bad}")
+    return launches, n, sysm, lambda k: gt[host_mono_frame_of(
+        round(sysm.map.kf_stamp[k] * 30), HOST_EPNP_TRACK, HOST_EPNP_RETURN)]
+
+
+def mono_loop_phase(torch, fast_cuda, GlobalBA, ate, sysm, gt_of_kf,
+                    card_line):
+    """[20]: the monocular Sim3 loop closure on the card, on [21]'s map
+    drifted in scale (host_sensor_scenes.drift_late_keyframes): the newest
+    keyframe closed against the oldest through the System's loop closer.
+    Returns its FAST launches (none: it processes no image)."""
+    lc, m = sysm.loop_closer, sysm.map
+    lc._global_ba = GlobalBA(sysm.cfg)
+    rec = watch_calls([], lc, ("compute_sim3", "correct", "run_pose_graph"))
+    watch_calls(rec, lc._global_ba, ("run",))
+    sites = {}
+
+    @contextlib.contextmanager
+    def counted():
+        torch.cuda.synchronize()
+        with count_host_syncs(torch) as found:
+            yield
+            torch.cuda.synchronize()
+        sites.update(found)
+
+    fast_cuda.LAUNCHES = 0
+    out = run_mono_loop(sysm, ate, gt_of_kf, around=counted)
+    launches = fast_cuda.LAUNCHES
+    before, drifted, after = out["before_m"], out["drifted_m"], out["after_m"]
+    moved, secs = out["moved"], out["close_s"]
+    stages = closure_stages(rec)
+    kfs = m.valid_keyframes()
+    oldest = int(kfs[np.argmin(m.kf_seq[kfs])])
+    j = JAX_CPU_HOST_MONO_LOOP
+    st = stages[0] if stages else {}
+    print(f"[20] monocular Sim3 closure on [21]'s map ({len(kfs)} keyframes; "
+          f"{len(moved)} moved with their points, {out['n_copies']} points "
+          f"copied, by a similarity of scale {HOST_MONO_LOOP_DRIFT['scale']}; "
+          f"JAX package on CPU in brackets): pair {out['pair']} "
+          f"({j['pair']}), compute_sim3 {out['debug']} ({j['debug']}), S12 "
+          f"scale {out.get('scale', float('nan')):.5f} "
+          f"({j['scale']:.5f}); keyframe Sim3 ATE {before * 100:.3f} cm, "
+          f"drifted {drifted * 100:.3f} ({j['drifted_m'] * 100:.3f}), after "
+          f"the closure {after * 100:.3f} ({j['after_m'] * 100:.3f}; gate < "
+          f"{HOST_MONO_LOOP_GAIN} x drifted)", flush=True)
+    print(f"[20] the closure's stall by stage (host ms, host syncs): "
+          f"compute_sim3 {st.get('compute_sim3_ms', float('nan')):.1f} / "
+          f"{st.get('compute_sim3_syncs')}, correct's own "
+          f"{st.get('correct_own_ms', float('nan')):.1f} / "
+          f"{st.get('correct_own_syncs')}, pose graph "
+          f"{st.get('pose_graph_ms', float('nan')):.1f} / "
+          f"{st.get('pose_graph_syncs')}, global BA "
+          f"{st.get('global_ba_ms', float('nan')):.1f} / "
+          f"{st.get('global_ba_syncs')}; {secs * 1e3:.1f} ms in all with "
+          f"{sum(sites.values())} host syncs; FAST launches {launches} (no "
+          f"image); on {card_line}", flush=True)
+    if not out["accepted"] or out["pair"][1] != oldest \
+            or abs(out["scale"] - HOST_MONO_LOOP_DRIFT["scale"]) > 0.05 \
+            or not after < HOST_MONO_LOOP_GAIN * drifted or launches:
+        _fail(f"monocular Sim3 closure: {out['debug']}, scale "
+              f"{out.get('scale')}, ATE {drifted} -> {after}")
+    return launches
+
+
 def host_flow_phase(torch, fast_cuda, config, synthetic, System, ate,
                     dynamic_mod, lk_flow, fundamental, BlurGate, dev,
                     card_line):
@@ -1503,6 +1663,153 @@ def multichip_phase(torch, fast_cuda, orbit_session, handoff, card_line,
     return launches, dr
 
 
+def bank_session_main(argv):
+    """``python3 chip_smoke.py --rt-bank-session {twin,reloc} VOCAB OUT``:
+    one of [19]'s sessions on the card in a process of its own (VOCAB a
+    vocabulary .npz, or - for none): the odometry twin of (a) over the
+    whole circuit, or (b). Pickles to OUT the ``finish()`` result, the
+    FAST launches, the seconds and, with a vocabulary, the maintenance
+    dispatches' summary and the bank relocalizations' dispatches."""
+    import pickle
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from coebslam_tpu_torch import config
+    from coebslam_tpu_torch.ops import fast_cuda
+    from coebslam_tpu_torch.slam import vocabulary
+    from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
+    from coebslam_tpu_torch.utils import synthetic
+    kind, voc_path, out_path = argv
+    dev = torch.device("cuda")
+    ccfg = circuit_config(config)
+    frames, _ = loop_scene(dev, range(synthetic.N_CIRCUIT
+                                      + synthetic.N_OVERLAP),
+                           synthetic.DEPTH_BIAS, synthetic, ccfg.camera)
+    voc = None if voc_path == "-" else vocabulary.load(voc_path)
+    rt = RealtimeSlam(ccfg, RTLimits(**BANK_LIMITS), vocabulary=voc,
+                      maintain_every=1)
+    rec = time_dispatches(torch, rt) if voc is not None else []
+    black = (torch.zeros_like(frames[0][0]), torch.zeros_like(frames[0][1]))
+    fast_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    if kind == "twin":
+        res = run_realtime(rt, frames)
+    else:
+        res = run_bank_reloc(rt, frames, black, synthetic.N_CIRCUIT // 2)
+    out = {"res": res, "launches": fast_cuda.LAUNCHES,
+           "seconds": time.perf_counter() - t0}
+    if rec:
+        out.update(dispatch=dispatch_summary(rec),
+                   bank_reloc=bank_dispatches(rec, 3))
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def rt_bank_phase(torch, fast_cuda, extractor, vocabulary, RealtimeSlam,
+                  RTLimits, synthetic, ate, ccfg, frames, gt, card_line):
+    """[19]: the place bank on the card (rt_loop_scenes.py): (a) the
+    drifted circuit with an 8-row ring and its odometry twin, (b) the
+    relocalization to an evicted place; the scene's own vocabulary. The
+    twin and (b) run in processes of their own (``bank_session_main``)
+    beside (a), for the script's time. Returns the FAST launches of (a)
+    (with the twin's) and (b)."""
+    import pickle
+    lim = RTLimits(**BANK_LIMITS)
+    n_circ, n_over = synthetic.N_CIRCUIT, synthetic.N_OVERLAP
+    t0 = time.perf_counter()
+    voc = _vocabulary_of(extractor, vocabulary, ccfg, frames,
+                         bank_vocab_frames(n_circ), BANK_VOCAB)
+    print(f"[19] scene vocabulary ({voc.n_words} words) trained in "
+          f"{time.perf_counter() - t0:.1f} s; the odometry twin and (b) run "
+          f"in two more processes beside (a)", flush=True)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_bank_")
+    voc_path = os.path.join(tmp.name, "vocabulary.npz")
+    vocabulary.save(voc_path, voc)
+    procs, logs = {}, {}
+    try:
+        for kind in ("twin", "reloc"):
+            logs[kind] = open(os.path.join(tmp.name, f"{kind}.log"), "w")
+            procs[kind] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--rt-bank-session", kind,
+                 "-" if kind == "twin" else voc_path,
+                 os.path.join(tmp.name, f"{kind}.pkl")],
+                stdout=logs[kind], stderr=subprocess.STDOUT)
+        # (a) the bank closure after the ring has wrapped
+        rt = RealtimeSlam(ccfg, lim, vocabulary=voc, maintain_every=1)
+        rec = time_dispatches(torch, rt)
+        fast_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = run_realtime(rt, frames)
+        loop_s = time.perf_counter() - t0
+        loop_launches = fast_cuda.LAUNCHES
+        other = {}
+        for kind, proc in procs.items():
+            rc = proc.wait(timeout=900)
+            logs[kind].close()
+            if rc != 0:
+                with open(logs[kind].name) as f:
+                    print(f.read()[-4000:], flush=True)
+                _fail(f"[19] {kind} session exited {rc}")
+            with open(os.path.join(tmp.name, f"{kind}.pkl"), "rb") as f:
+                other[kind] = pickle.load(f)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tmp.cleanup()
+    twin = other["twin"]
+    s = bank_loop_summary(res, twin["res"], gt, n_circ, n_over, ate)
+    closes, disp = bank_dispatches(rec, 2), dispatch_summary(rec)
+    j = JAX_CPU_RT_BANK_LOOP
+    print(f"[19a] bank closure after the ring wraps (8-row ring, bank_cap "
+          f"{lim.bank_cap}; JAX package on CPU in brackets): frames OK "
+          f"{s['ok']}/{s['n']} ({j['ok']}), keyframes {s['n_kf']} "
+          f"({j['n_kf']}; gate >= {3 * lim.max_kf}), bank entries "
+          f"{s['bank_entries']} ({j['bank_entries']}; gate > {lim.max_kf}), "
+          f"bank closures {s['n_bank_loops']} ({j['n_bank_loops']}; gate >= "
+          f"1), applied closures' keyframe gaps {s['applied_gaps']} "
+          f"({j['applied_gaps']}; gate: one > {lim.max_kf}), revisit gap "
+          f"{s['gap_m'] * 100:.3f} cm against the odometry's "
+          f"{s['gap_odo_m'] * 100:.3f} ({j['gap_m'] * 100:.3f} against "
+          f"{j['gap_odo_m'] * 100:.3f}; gate < 0.6 x), ATE "
+          f"{s['ate_m'] * 100:.3f} cm against the odometry's "
+          f"{s['ate_odo_m'] * 100:.3f} ({j['ate_m'] * 100:.3f} against "
+          f"{j['ate_odo_m'] * 100:.3f}; gate <= 1.1 x + 0.5 cm)", flush=True)
+    n = len(frames)
+    print(f"[19a] FAST launches {loop_launches} for {n} frames, the twin's "
+          f"{twin['launches']} for {n}; {loop_s:.1f} s, the twin "
+          f"{twin['seconds']:.1f} s; dispatches {disp['dispatches']}; the "
+          f"bank closures' dispatches (host ms, device span ms) {closes}; "
+          f"{dispatch_line(disp)}; on {card_line}", flush=True)
+    bad = bank_loop_failures(s, lim.max_kf)
+    if loop_launches != n or twin["launches"] != n:
+        bad.append(f"{loop_launches} and {twin['launches']} FAST launches")
+    if bad:
+        _fail(f"bank closure: {bad}")
+    # (b) the relocalization to an evicted place
+    rel = other["reloc"]
+    s = bank_reloc_summary(rel["res"])
+    j = JAX_CPU_RT_BANK_RELOC
+    print(f"[19b] bank relocalization to an evicted place (frames 0-"
+          f"{n_circ // 2 - 1}, {BANK_RELOC_BLACK} black, frames 6-15 again; "
+          f"JAX package on CPU in brackets): bank relocalizations "
+          f"{s['n_bank_reloc']} ({j['n_bank_reloc']}; gate >= 1), revisit "
+          f"frames OK {s['revisit_ok']}/{s['n_revisit']} ({j['revisit_ok']}; "
+          f"gate >= {s['n_revisit'] - 2}), median centre error "
+          f"{s['median_err_m'] * 100:.3f} cm ({j['median_err_m'] * 100:.3f}; "
+          f"limit 30 cm); FAST launches {rel['launches']} for {s['n']} "
+          f"frames, {rel['seconds']:.1f} s; the bank relocalizations' "
+          f"dispatches (host ms, device span ms) {rel['bank_reloc']}; "
+          f"{dispatch_line(rel['dispatch'])}; on {card_line}", flush=True)
+    bad = bank_reloc_failures(s)
+    if rel["launches"] != s["n"]:
+        bad.append(f"{rel['launches']} FAST launches for {s['n']} frames")
+    if bad:
+        _fail(f"bank relocalization: {bad}")
+    return loop_launches + twin["launches"], rel["launches"]
+
+
 def train_phase(torch, out_path):
     """[18]: tools/train_detector.run on the card at TRAIN_DETECTOR."""
     from coebslam_tpu_torch.models import detector as detector_mod, yolov5
@@ -1520,6 +1827,9 @@ def train_phase(torch, out_path):
     same = back.keys() == td["state_dict"].keys() and all(
         torch.equal(back[k], td["state_dict"][k]) for k in back)
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    digest = hashlib.sha1(losses.tobytes() + b"".join(
+        td["state_dict"][k].numpy().tobytes()
+        for k in sorted(td["state_dict"]))).hexdigest()
     print(f"[18] train_detector at width {c['width']}, batch {c['batch']}, "
           f"input {train_detector.INPUT}, cut to {c['seqs']} sequences x "
           f"{c['frames']} frames ({td['n_val']} held out) and {c['steps']} "
@@ -1530,7 +1840,10 @@ def train_phase(torch, out_path):
           f"steps/s; held-out IoU {td['miou']:.3f} over {td['n_boxes']} "
           f"boxes; peak device memory {mem:.1f} MiB; the .npz read back by "
           f"load_variables_npz equals the trained state: {same} (width "
-          f"{float(meta['width'])})", flush=True)
+          f"{float(meta['width'])}); deterministic (PyTorch's deterministic "
+          f"algorithms, cuDNN deterministic, TF32 off): SHA-1 of the losses "
+          f"and the trained weights {digest}, equal in every run of this "
+          f"tree on one card", flush=True)
     if td["device"] != "cuda" or not np.isfinite(losses).all() \
             or not last < first or not same:
         _fail(f"train_detector: device {td['device']}, losses "
@@ -1542,6 +1855,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:2] == ["--rt-bank-session"]:
+        return bank_session_main(sys.argv[2:])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from coebslam_tpu_torch import config
     from coebslam_tpu_torch.config import SystemConfig
@@ -1751,7 +2066,7 @@ def main():
     fast_cuda.LAUNCHES = 0
     peak_mib(torch)
     t0 = time.perf_counter()
-    res = run_maintained(rt, frames)
+    res = run_realtime(rt, frames)
     circ_s = time.perf_counter() - t0
     circ_launches = fast_cuda.LAUNCHES
     n = len(res["ok"])
@@ -1787,7 +2102,7 @@ def main():
     rec = time_dispatches(torch, rt)
     fast_cuda.LAUNCHES = 0
     peak_mib(torch)
-    res = run_maintained(rt, frames)
+    res = run_realtime(rt, frames)
     kid_launches = fast_cuda.LAUNCHES
     est = centres(res)
     n = len(est)
@@ -1984,7 +2299,11 @@ def main():
     lap("11")
     # ---- 12. monocular at full width (tests/test_realtime_mono.py's scene)
     mcfg = mono_config(config)
-    frames, mgt = mono_scene(synthetic, mcfg.camera, dev, N_MONO_RUN)
+    # [15b] takes the first HOST_MONO_TRACK of these frames.
+    frames, mgt = mono_scene(synthetic, mcfg.camera, dev,
+                             max(N_MONO_RUN, HOST_MONO_TRACK))
+    mono_frames, mono_gt = frames, mgt
+    frames, mgt = frames[:N_MONO_RUN], mgt[:N_MONO_RUN]
     rt = RealtimeSlam(mcfg, RTLimits())
     attempts = []
     fit = initializer_ops.reconstruct_graph
@@ -2059,7 +2378,6 @@ def main():
         _fail(f"mono Sim3 ATE {ms_['ate_sim3_m']} m >= {MONO_ATE_LIMIT_M} m")
     if mo_launches != n:
         _fail(f"mono: {mo_launches} FAST launches for {n} frames")
-    mono_frames, mono_gt = frames, mgt    # [15b] reuses them
     lap("12")
     # ---- 16a. the replica written as TUM files
     files = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -2087,13 +2405,13 @@ def main():
     # ---- 13. the host-orchestrated System, fed from the files by the
     # offline driver (run_tum_rgbd, host mode, --boxes)
     seq = tum.load_tum_sequence(rep_root)
-    hgt = seq.gt_poses[:N_HOST, :3]
+    hgt = seq.gt_poses[:N_HOST_RUN, :3]
     h_out, h_launches, h_syncs, h_sites, h_s, h_mem = driver_phase(
         torch, fast_cuda, run_tum_rgbd.run, run_tum_rgbd.parse_args(
-            [rep_root, "--boxes", rep_boxes, "--max-frames", str(N_HOST),
+            [rep_root, "--boxes", rep_boxes, "--max-frames", str(N_HOST_RUN),
              "--out", os.path.join(files.name, "host")]))
     hsys = h_out["system"]               # [15d] saves its map
-    hs = host_summary(hsys, h_out["states"], seq.gt_stamps[:N_HOST], hgt,
+    hs = host_summary(hsys, h_out["states"], seq.gt_stamps[:N_HOST_RUN], hgt,
                       ate)
     stage_ms = dict(hsys.mapper.stage_ms)
     j = JAX_CPU_HOST
@@ -2123,7 +2441,7 @@ def main():
     if h_launches != hs["n"]:
         _fail(f"host System: {h_launches} FAST launches for {hs['n']} "
               f"frames")
-    stamp, g, d = seq.load_frame(N_HOST - 1)
+    stamp, g, d = seq.load_frame(N_HOST_RUN - 1)
     h_last = (stamp, g, d, run_tum_rgbd.box_lookup(
         rep_boxes, SystemConfig().dynamic.max_boxes)(stamp))
     lap("13")
@@ -2306,6 +2624,21 @@ def main():
     train_phase(torch, os.path.join(files.name, "detector.npz"))
     files.cleanup()
     lap("18")
+    # ---- 19. the realtime place bank: a closure and a relocalization to
+    # places the 8-row ring has evicted
+    bank_loop_launches, bank_reloc_launches = rt_bank_phase(
+        torch, fast_cuda, extractor, vocabulary, RealtimeSlam, RTLimits,
+        synthetic, ate, ccfg, circ_frames, gt_circ, card_line)
+    lap("19")
+    # ---- 21. the host System's recovery through the Relocalizer's EPnP
+    hep_launches, _, mono_sys, gt_of_kf = host_epnp_phase(
+        torch, fast_cuda, config, extractor, vocabulary, synthetic, System,
+        ate, dev, card_line)
+    lap("21")
+    # ---- 20. the monocular Sim3 loop closure, on [21]'s map
+    hml_launches = mono_loop_phase(torch, fast_cuda, GlobalBA, ate,
+                                   mono_sys, gt_of_kf, card_line)
+    lap("20")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
@@ -2335,7 +2668,11 @@ def main():
                              "train_vocab": tv_launches,
                              "entry": entry_launches,
                              "multichip_frontend":
-                                 dr["frontend_launches"]},
+                                 dr["frontend_launches"],
+                             "rt_bank_loop": bank_loop_launches,
+                             "rt_bank_reloc": bank_reloc_launches,
+                             "host_epnp_reloc": hep_launches,
+                             "host_mono_loop": hml_launches},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

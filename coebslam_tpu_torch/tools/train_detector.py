@@ -22,15 +22,20 @@ room and saves it in the JAX tool's format (flattened Flax variable names,
     statistics instead.
   * Batches: ``RandomState(0).randint`` per step, the JAX tool's draws.
   * Score: held-out mean IoU through ``YoloDetector`` (the inference path).
+  * Determinism (``deterministic``): training and scoring run with
+    PyTorch's deterministic algorithms, cuDNN's deterministic and
+    non-benchmarked convolutions and TF32 off (the reference computes in
+    float32), so two runs on one card give the same bits.
 
 Usage:
   python3 -m coebslam_tpu_torch.tools.train_detector [--steps 700]
       [--width 0.125] [--batch 8] [--lr 2e-3] [--seqs 3] [--frames 130]
-      [--out build/detector_walker.npz] [--cpu]
+      [--out build/detector_walker.npz] [--log-every 100] [--cpu]
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -56,6 +61,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seqs", type=int, default=3)
     ap.add_argument("--frames", type=int, default=130)
     ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--log-every", type=int, default=100)
     ap.add_argument("--cpu", action="store_true")
     return ap.parse_args(argv)
 
@@ -158,33 +164,70 @@ def stack_targets(boxes, cam_w, cam_h, device):
             for lvl in range(len(per[0]))]
 
 
-def detector_loss(raw, targets):
+#: The loss terms ``detector_loss(terms=True)`` returns, in order.
+TERMS = ("obj", "cls", "xy", "wh")
+
+
+def detector_loss(raw, targets, terms: bool = False):
     """The JAX tool's training loss over the heads ``raw`` ([B, h, w, 3,
     6] per level) and the batch's ``targets`` (per level obj, xy, wh,
     mask): per level, BCE objectness and class BCE with positives weighted
     1 + 200 (means over every cell and anchor), and 8 x the squared
     sigmoid-space xy and wh errors summed over the positives / (positives
-    + 1)."""
+    + 1). The total is accumulated in the JAX tool's order; with
+    ``terms`` also a [4] tensor of each term summed over the levels
+    (``TERMS``)."""
     import torch
     import torch.nn.functional as F
     total = 0.0
+    parts = []
     for r, (obj_t, xy_t, wh_t, mask) in zip(raw, targets):
         sig = torch.sigmoid(r)
         wpos = 1.0 + 200.0 * obj_t
         bce = F.binary_cross_entropy_with_logits(r[..., 4], obj_t,
                                                  reduction="none")
-        total = total + (bce * wpos).mean()
+        obj = (bce * wpos).mean()
         m = mask[..., None]
         npos = mask.sum() + 1.0
         zero = torch.zeros((), dtype=r.dtype, device=r.device)
-        total = total + 8.0 * torch.where(
-            m, (sig[..., 0:2] - xy_t) ** 2, zero).sum() / npos
-        total = total + 8.0 * torch.where(
-            m, (sig[..., 2:4] - wh_t) ** 2, zero).sum() / npos
+        xy = 8.0 * torch.where(m, (sig[..., 0:2] - xy_t) ** 2,
+                               zero).sum() / npos
+        wh = 8.0 * torch.where(m, (sig[..., 2:4] - wh_t) ** 2,
+                               zero).sum() / npos
         cls_bce = F.binary_cross_entropy_with_logits(r[..., 5], obj_t,
                                                      reduction="none")
-        total = total + (cls_bce * wpos).mean()
+        cls = (cls_bce * wpos).mean()
+        total = total + obj + xy + wh + cls
+        parts.append(torch.stack([obj, cls, xy, wh]))
+    if terms:
+        return total, torch.stack(parts).detach().sum(0)
     return total
+
+
+@contextlib.contextmanager
+def deterministic(torch, warn_only: bool = False):
+    """Run the block with PyTorch's deterministic algorithms (an op
+    without one raises, or with ``warn_only`` warns), cuDNN's
+    deterministic, non-benchmarked convolutions and TF32 off for
+    convolutions and matrix products; restore the settings after it.
+    cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG`` for deterministic products:
+    it is set here unless the caller set it (it takes effect when the
+    process first uses cuBLAS)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             matmul.allow_tf32)
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+         matmul.allow_tf32) = saved[2:]
 
 
 def make_optimizer(model, lr: float):
@@ -236,20 +279,30 @@ def save_variables(path: str, state_dict, miou: float, width: float):
 
 
 def run(args: argparse.Namespace) -> dict:
-    """Render, train, score and save. Returns the per-step losses, the
-    seconds of rendering and training, steps/s (steps 2 to the last, the
-    card drained), the held-out IoU and its box count, the frame counts,
-    the trained ``state_dict`` (CPU) and the output path."""
+    """Render, then train, score and save under ``deterministic``. Returns
+    the per-step losses and loss terms ([steps, 4], ``TERMS``), the seconds
+    of rendering and training, steps/s (steps 2 to the last, the card
+    drained), the held-out IoU and its box count, the frame counts, the
+    trained ``state_dict`` (CPU) and the output path."""
     import torch
-    from ..config import DetectorConfig, SystemConfig
-    from ..models import yolov5
-    from ..models.detector import YoloDetector, preprocess
     from ..utils.device import resolve_device
 
     dev = resolve_device("cpu" if args.cpu else None, "train_detector")
     t0 = time.perf_counter()
     G, B = render_dataset(args.seqs, args.frames, device=dev)
     render_s = time.perf_counter() - t0
+    with deterministic(torch):
+        out = _train(args, dev, G, B, render_s)
+    out["render_s"] = render_s
+    return out
+
+
+def _train(args: argparse.Namespace, dev, G, B, render_s) -> dict:
+    import torch
+    from ..config import DetectorConfig, SystemConfig
+    from ..models import yolov5
+    from ..models.detector import YoloDetector, preprocess
+
     n = len(G)
     if n <= N_VAL:
         raise ValueError(f"{n} frames: more than the {N_VAL} held out "
@@ -273,28 +326,34 @@ def run(args: argparse.Namespace) -> dict:
         raise RuntimeError(f"train_detector: training is not on {dev}")
 
     rng = np.random.RandomState(0)
-    losses = []
+    losses, terms = [], []
     t_first = t1 = time.perf_counter()
     for it in range(args.steps):
         idx = torch.from_numpy(rng.randint(0, n - N_VAL, size=args.batch)
                                ).to(dev)
-        loss = detector_loss(model(imgs[idx]),
-                             [tuple(a[idx] for a in lvl) for lvl in T])
+        loss, parts = detector_loss(
+            model(imgs[idx]), [tuple(a[idx] for a in lvl) for lvl in T],
+            terms=True)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
         losses.append(loss.detach())
+        terms.append(parts)
         if it == 0:
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             t1 = time.perf_counter()
-        if it % 100 == 0 or it == args.steps - 1:
-            print(f"step {it}: loss {float(losses[-1]):.4f} "
-                  f"({time.perf_counter() - t_first:.0f}s)", flush=True)
+        if it % args.log_every == 0 or it == args.steps - 1:
+            vals = torch.cat([losses[-1][None], parts]).tolist()
+            print(f"step {it}: loss {vals[0]:.4f} ("
+                  + ", ".join(f"{k} {v:.4f}" for k, v in zip(TERMS,
+                                                              vals[1:]))
+                  + f"; {time.perf_counter() - t_first:.0f}s)", flush=True)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t2 = time.perf_counter()
     losses = torch.stack(losses).cpu().numpy().astype(float).tolist()
+    terms = torch.stack(terms).cpu().numpy().astype(float)
     steps_per_s = (args.steps - 1) / (t2 - t1) if args.steps > 1 \
         else float("nan")
 
@@ -307,10 +366,9 @@ def run(args: argparse.Namespace) -> dict:
     print(f"held-out mean IoU vs GT: {miou:.3f} over {n_boxes} boxes")
     save_variables(args.out, state, miou, args.width)
     print(f"saved {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB)")
-    return {"losses": losses, "render_s": render_s, "train_s": t2 - t_first,
-            "steps_per_s": steps_per_s, "miou": miou, "n_boxes": n_boxes,
-            "n_frames": n, "n_val": N_VAL, "state_dict": state,
-            "out": args.out, "device": str(dev)}
+    return {"losses": losses, "terms": terms, "train_s": t2 - t_first, "steps_per_s": steps_per_s,
+            "miou": miou, "n_boxes": n_boxes, "n_frames": n, "n_val": N_VAL,
+            "state_dict": state, "out": args.out, "device": str(dev)}
 
 
 def main(argv=None) -> int:

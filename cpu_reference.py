@@ -13,7 +13,10 @@ Run from the repository root:
     python3 cpu_reference.py {jax,port} {host-loop-full,host-reloc-full}
     python3 cpu_reference.py {jax,port} {host-stereo,host-mono,host-flow}
     python3 cpu_reference.py {jax,port} {host-stereo,host-mono,host-flow}-full
+    python3 cpu_reference.py {jax,port} {rt-bank-loop,rt-bank-reloc}
+    python3 cpu_reference.py {jax,port} {host-epnp-reloc,host-mono-loop}
     python3 cpu_reference.py jax train-detector [STEPS]
+    python3 cpu_reference.py {jax,port} train-curve [STEPS]
 
 Drives one package on the CPU over one scene at the configuration of the
 matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
@@ -92,6 +95,35 @@ matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
   the quality to set beside the port's run of the same tool on the card
   (``python3 -m coebslam_tpu_torch.tools.train_detector --width 0.25``)
   and the committed artifact's recorded ``__miou__``.
+- ``rt-bank-loop``, ``rt-bank-reloc`` ([19], ``rt_loop_scenes.py``):
+  the realtime place bank on the drifted circuit with an 8-row keyframe
+  ring and the scene's own vocabulary (tests/test_place_bank.py): the
+  bank closure after the ring wraps beside its odometry twin (keyframes,
+  bank entries and closures, the applied closures' keyframe gaps, the
+  revisit gap and ATE of both), and the relocalization to an evicted
+  place (bank relocalizations, revisit frames tracked, their median
+  centre error); the failed gates and the event log.
+- ``host-epnp-reloc`` ([21], ``host_sensor_scenes.py``): [15b]'s
+  monocular System at full width over frames 0-45 of the room's orbit at
+  1.2 m radius, 3 black frames, then frame 15 again, which lies beyond
+  the fused step's widened
+  gate: [15b]'s gates' numbers, the return frame's relocalize calls
+  (branch, candidates tried, inliers) and its EPnP RANSACs, counted.
+- ``host-mono-loop`` ([20]): ``host-epnp-reloc``'s session, then its map
+  drifted in scale (``host_sensor_scenes.drift_late_keyframes``) and its
+  newest keyframe closed against its oldest through the System's loop
+  closer: the pair, compute_sim3's gates, S12's scale, the keyframe Sim3
+  ATE before the drift, drifted and after the closure, the closure's
+  stages (host ms).
+- ``train-curve [STEPS]``: every step's loss and its four terms
+  (objectness BCE, class BCE, xy, wh) of a training run at the walker
+  detector's width 0.25 (default 700 steps) on the CPU, with the largest
+  loss and its step and the held-out IoU. ``port`` runs
+  ``coebslam_tpu_torch.tools.train_detector.run`` (deterministic, its
+  output in a temporary directory); ``jax`` runs the JAX tool's own
+  dataset, targets, network and Adam with its ``loss_fn`` transcribed to
+  return the terms too (the tool prints the loss every 100 steps only).
+  ``profile_train_detector.py --cpu-json`` reads the port's.
 - ``refine orbit|circuit`` ([10]): the session of [4] or [6], then the
   handoff (``to_arena``), global BA and ``refined_trajectory``: the
   arena's keyframes and points, the observations cut (``truncated_obs``),
@@ -118,14 +150,20 @@ from chip_smoke import (CIRCUIT_LIMITS, DETECT_EVERY, HOST_SCHEDULE,
                         run_host, stereo_blurred, stereo_config, stereo_scene,
                         walker_detector)
 from host_sensor_scenes import (
-    HOST_FLOW_ORBIT, HOST_FLOW_WALKER, HOST_MONO_ORBIT, HOST_MONO_RETURN,
-    HOST_MONO_TRACK,
+    HOST_EPNP_ORBIT, HOST_EPNP_RETURN, HOST_EPNP_TRACK,
+    HOST_EPNP_VOCAB_FRAMES, HOST_FLOW_ORBIT, HOST_FLOW_WALKER, HOST_MONO_ORBIT, HOST_MONO_RETURN,
+    HOST_MONO_TRACK, host_epnp_failures, host_mono_frame_of,
+    run_mono_loop,
     HOST_MONO_VOCAB, HOST_MONO_VOCAB_FRAMES, HOST_STEREO_ORBIT,
     N_HOST_FLOW, pose_centres, host_flow_config, host_flow_failures,
     host_flow_frames, host_flow_summary, host_mono_config,
     host_mono_failures, host_stereo_config, host_stereo_failures,
     host_stereo_frames, host_stereo_summary, run_host_flow, run_host_mono,
     run_host_stereo)
+from rt_loop_scenes import (BANK_LIMITS, BANK_VOCAB, bank_loop_failures,
+                            bank_loop_summary, bank_reloc_failures,
+                            bank_reloc_summary, bank_vocab_frames,
+                            loop_scene, run_bank_reloc, run_realtime)
 from host_bow_scenes import (HOST_LOOP_VOCAB, HOST_LOOP_VOCAB_FRAMES,
                              HOST_RELOC_ORBIT, HOST_RELOC_RETURN,
                              HOST_RELOC_VOCAB, HOST_RELOC_VOCAB_FRAMES,
@@ -493,9 +531,10 @@ def run_host_bow(pkg, scene):
 def run_host_sensor(pkg, scene):
     """[15a]-[15c] (``host-stereo``, ``host-mono``, ``host-flow``) on
     either package, at the tests' ORB cut or, with ``-full``, at the width
-    chip_smoke.py runs."""
-    kind = scene.split("-")[1]
-    full = scene.endswith("-full")
+    chip_smoke.py runs; [21] (``host-epnp-reloc``) at that width."""
+    mono_loop = scene == "host-mono-loop"
+    kind = "epnp" if mono_loop else scene.split("-")[1]
+    full = scene.endswith("-full") or kind == "epnp"
     if pkg == "jax":
         import jax
         import jax.numpy as jnp
@@ -504,6 +543,7 @@ def run_host_sensor(pkg, scene):
         from coebslam_tpu.ops import extractor, initializer_ops
         from coebslam_tpu.slam import frame as frame_mod
         from coebslam_tpu.slam import vocabulary as voc_mod
+        from coebslam_tpu.slam.global_ba import GlobalBA
         from coebslam_tpu.slam.system import System
         from coebslam_tpu.utils import synthetic
         planes = synthetic.make_room(seed=0)
@@ -522,6 +562,7 @@ def run_host_sensor(pkg, scene):
         from coebslam_tpu_torch.ops import extractor, initializer_ops
         from coebslam_tpu_torch.slam import frame as frame_mod
         from coebslam_tpu_torch.slam import vocabulary as voc_mod
+        from coebslam_tpu_torch.slam.global_ba import GlobalBA
         from coebslam_tpu_torch.slam.system import System
         from coebslam_tpu_torch.utils import synthetic
         planes = synthetic.make_room(seed=0, device="cpu")
@@ -533,6 +574,7 @@ def run_host_sensor(pkg, scene):
                                         cfg.orb)
             return fd, sysm._words(fd.feats.desc, fd.feats.valid)
     cfg = {"stereo": host_stereo_config, "mono": host_mono_config,
+           "epnp": host_mono_config,
            "flow": host_flow_config}[kind](config, full)
     grey = lambda p: synthetic.render(cfg.camera, p, planes)[0]
     t0 = time.time()
@@ -544,15 +586,20 @@ def run_host_sensor(pkg, scene):
         out.update(host_stereo_summary(sysm, run_host_stereo(sysm, frames),
                                        pose_centres(poses), ate))
         out["failed"] = host_stereo_failures(out)
-    elif kind == "mono":
-        poses = synthetic.camera_trajectory(**HOST_MONO_ORBIT)[
-            :HOST_MONO_TRACK]
+    elif kind in ("mono", "epnp"):
+        epnp = kind == "epnp"
+        track, vocab_frames, ret = (
+            (HOST_EPNP_TRACK, HOST_EPNP_VOCAB_FRAMES, HOST_EPNP_RETURN)
+            if epnp else (HOST_MONO_TRACK, HOST_MONO_VOCAB_FRAMES,
+                          HOST_MONO_RETURN))
+        poses = synthetic.camera_trajectory(
+            **(HOST_EPNP_ORBIT if epnp else HOST_MONO_ORBIT))[:track]
         frames = [grey(p) for p in poses]
         extract = lambda g: extractor.extract(g, cfg.orb)
         if pkg == "jax":
             extract = jax.jit(extract)
         descs = []
-        for i in HOST_MONO_VOCAB_FRAMES:
+        for i in vocab_frames:
             f = extract(frames[i])
             descs.append(np.asarray(f.desc)[np.asarray(f.valid)])
         voc = scene_vocabulary(voc_mod, descs, **HOST_MONO_VOCAB)
@@ -572,14 +619,28 @@ def run_host_sensor(pkg, scene):
         setattr(initializer_ops, fit_name, logged)
         rec = watch_calls([], sysm.relocalizer,
                           RELOC_ATTEMPTS[pkg] + ("relocalize",))
+        mark = []
         try:
-            out.update(run_host_mono(sysm, frames, frames[0] * 0,
-                                     pose_centres(poses), ate))
+            out.update(run_host_mono(
+                sysm, frames, frames[0] * 0, pose_centres(poses), ate, ret,
+                before_return=lambda: mark.append(len(rec))))
         finally:
             setattr(initializer_ops, fit_name, orig)
         keys = ("ok", "n_inliers", "ms", "candidates_tried", "branch")
         out.update(voc_words=int(voc.n_words), init_attempts=attempts,
                    reloc=[{k: c[k] for k in keys} for c in reloc_calls(rec)])
+        if epnp:
+            back = rec[mark[0]:]
+            out.update(return_reloc=[{k: c[k] for k in keys}
+                                     for c in reloc_calls(back)],
+                       return_pnp=sum("pnp" in r[0] for r in back))
+            out.update(track_s=time.time() - t0, full=full,
+                       failed=host_epnp_failures(out))
+            if mono_loop:
+                out = {"epnp_failed": out["failed"],
+                       **_mono_loop(sysm, ate, GlobalBA, pose_centres(poses),
+                                    pkg)}
+            return out
         # The Relocalizer on the return frame, against frame 12's own
         # earlier pose: its EPnP branch (no depth).
         del rec[:]
@@ -628,6 +689,23 @@ def run_host_sensor(pkg, scene):
             [k + 1 for k, f in enumerate(flags) if f]))
         out["failed"] = host_flow_failures(out)
     out.update(track_s=time.time() - t0, full=full)
+    return out
+
+
+def _mono_loop(sysm, ate, GlobalBA, gt, pkg):
+    """[20] on a System that ran [21]'s scene (host_sensor_scenes.
+    run_mono_loop), with the closure's stages (host ms)."""
+    lc = sysm.loop_closer
+    lc._global_ba = GlobalBA(sysm.cfg) if pkg == "jax" \
+        else GlobalBA(sysm.cfg, device="cpu")
+    rec = watch_calls([], lc, ("compute_sim3", "correct", "run_pose_graph"))
+    watch_calls(rec, lc._global_ba, ("run",))
+    out = run_mono_loop(sysm, ate, lambda k: gt[host_mono_frame_of(
+        round(sysm.map.kf_stamp[k] * 30), HOST_EPNP_TRACK,
+        HOST_EPNP_RETURN)])
+    out.pop("S", None)
+    out["stages"] = [{k: v for k, v in c.items() if k != "sites"}
+                     for c in closure_stages(rec)]
     return out
 
 
@@ -702,8 +780,11 @@ def run_jax(scene, refine, n=None):
         return run_driver_rt("jax", n)
     if scene.startswith(("host-loop", "host-reloc")):
         return run_host_bow("jax", scene)
-    if scene.startswith(("host-stereo", "host-mono", "host-flow")):
+    if scene.startswith(("host-stereo", "host-mono", "host-flow",
+                         "host-epnp")):
         return run_host_sensor("jax", scene)
+    if scene.startswith("rt-bank"):
+        return run_rt_bank("jax", scene)
     if scene in ("stereo", "mono"):
         return run_jax_sensor(scene, n)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -799,8 +880,11 @@ def run_port(scene, refine, n=None):
         return run_png()
     if scene.startswith(("host-loop", "host-reloc")):
         return run_host_bow("port", scene)
-    if scene.startswith(("host-stereo", "host-mono", "host-flow")):
+    if scene.startswith(("host-stereo", "host-mono", "host-flow",
+                         "host-epnp")):
         return run_host_sensor("port", scene)
+    if scene.startswith("rt-bank"):
+        return run_rt_bank("port", scene)
     if scene == "stereo":
         cfg = stereo_config(config)
         frames, gt = stereo_scene(torch, synthetic, replica, cfg.camera,
@@ -857,6 +941,76 @@ def run_port(scene, refine, n=None):
     return _summary(rt, res, seen, gt, ate, 8 if scene == "circuit" else 5)
 
 
+def run_rt_bank(pkg, scene):
+    """[19] (``rt-bank-loop``, ``rt-bank-reloc``) on either package: the
+    drifted circuit with the 8-row ring of rt_loop_scenes.BANK_LIMITS and
+    the scene's own vocabulary (tests/test_place_bank.py). The JAX package
+    renders and extracts with its own code, the port with its own on the
+    CPU, as the card does."""
+    loop = scene == "rt-bank-loop"
+    if pkg == "jax":
+        import jax
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from coebslam_tpu import config
+        from coebslam_tpu.eval import ate
+        from coebslam_tpu.ops import extractor
+        from coebslam_tpu.slam import vocabulary as voc_mod
+        from coebslam_tpu.slam.realtime import RealtimeSlam, RTLimits
+        from coebslam_tpu.utils import synthetic
+        from test_loop_e2e import (DEPTH_BIAS, N_CIRCUIT, N_OVERLAP,
+                                   circuit_poses, six_wall_room)
+        cfg = circuit_config(config)
+        planes = six_wall_room()
+        poses = circuit_poses(N_CIRCUIT + N_OVERLAP)
+        render = jax.jit(lambda p: synthetic.render(cfg.camera, p,
+                                                    planes)[:2])
+        frames = [(np.asarray(g), np.asarray(d) * DEPTH_BIAS)
+                  for g, d in map(render, poses)]
+        gt = np.asarray([-np.asarray(p.R).T @ np.asarray(p.t)
+                         for p in poses])
+        ex = jax.jit(lambda g: extractor.extract(g, cfg.orb))
+        make = RealtimeSlam
+        black = (np.zeros_like(frames[0][0]), np.zeros_like(frames[0][1]))
+    else:
+        import torch
+        from coebslam_tpu_torch import config
+        from coebslam_tpu_torch.eval import ate
+        from coebslam_tpu_torch.ops import extractor
+        from coebslam_tpu_torch.slam import vocabulary as voc_mod
+        from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
+        from coebslam_tpu_torch.utils import synthetic
+        N_CIRCUIT, N_OVERLAP = synthetic.N_CIRCUIT, synthetic.N_OVERLAP
+        cfg = circuit_config(config)
+        frames, gt = loop_scene("cpu", range(N_CIRCUIT + N_OVERLAP),
+                                synthetic.DEPTH_BIAS, synthetic, cfg.camera)
+        ex = lambda g: extractor.extract(g, cfg.orb)
+        make = lambda *a, **kw: RealtimeSlam(*a, device="cpu", **kw)
+        black = (torch.zeros_like(frames[0][0]),
+                 torch.zeros_like(frames[0][1]))
+    descs = []
+    for i in bank_vocab_frames(N_CIRCUIT):
+        f = ex(frames[i][0])
+        descs.append(np.asarray(f.desc)[np.asarray(f.valid)])
+    voc = scene_vocabulary(voc_mod, descs, **BANK_VOCAB)
+    lim = RTLimits(**BANK_LIMITS)
+    t0 = time.time()
+    if loop:
+        res = run_realtime(make(cfg, lim, vocabulary=voc, maintain_every=1),
+                           frames)
+        res_odo = run_realtime(make(cfg, lim, maintain_every=1), frames)
+        out = bank_loop_summary(res, res_odo, gt, N_CIRCUIT, N_OVERLAP, ate)
+        out["failed"] = bank_loop_failures(out, lim.max_kf)
+    else:
+        res = run_bank_reloc(make(cfg, lim, vocabulary=voc,
+                                  maintain_every=1), frames, black,
+                             N_CIRCUIT // 2)
+        out = bank_reloc_summary(res)
+        out["failed"] = bank_reloc_failures(out)
+    out.update(voc_words=int(voc.n_words), track_s=time.time() - t0,
+               loop_events=res["loop_events"])
+    return out
+
+
 def run_jax_train_detector(steps: int) -> dict:
     """The JAX tool's training run (see ``train-detector`` above)."""
     import re
@@ -878,8 +1032,128 @@ def run_jax_train_detector(steps: int) -> dict:
             "miou": float(miou.group(1)), "n_boxes": int(miou.group(2))}
 
 
+def run_train_curve(pkg: str, steps: int) -> dict:
+    """``train-curve``: every step's loss and terms (see above)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        if pkg == "port":
+            from coebslam_tpu_torch.tools import train_detector
+            r = train_detector.run(train_detector.parse_args(
+                ["--width", "0.25", "--steps", str(steps), "--cpu", "--out",
+                 os.path.join(tmp, "detector.npz")]))
+            losses, terms, miou = r["losses"], r["terms"].tolist(), r["miou"]
+        else:
+            losses, terms, miou = _jax_train_curve(steps, tmp)
+    worst = int(np.argmax(losses))
+    return {"width": 0.25, "steps": steps, "losses": losses, "terms": terms,
+            "terms_order": ["obj", "cls", "xy", "wh"],
+            "max_loss": losses[worst], "max_step": worst,
+            "max_terms": terms[worst], "miou": miou,
+            "logged": {s: losses[s] for s in
+                       sorted(set(range(0, steps, 100)) | {steps - 1})}}
+
+
+def _jax_train_curve(steps, tmp):
+    """The JAX tool's training (tools/train_detector.py ``main`` at
+    ``--width 0.25 --cpu``) with every step's loss and terms; its
+    ``loss_fn`` transcribed with the terms as an auxiliary output."""
+    import importlib.util
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from coebslam_tpu.config import DetectorConfig, SystemConfig
+    from coebslam_tpu.models import yolov5
+    from coebslam_tpu.models.detector import YoloDetector
+    spec = importlib.util.spec_from_file_location(
+        "jax_train_detector", os.path.join(ROOT, "tools",
+                                           "train_detector.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    cache = os.path.join(tmp, "dataset.npz")
+    tool.render_dataset(cache)
+    z = np.load(cache)
+    G, B = z["g"], z["b"]
+    n, n_val, width = len(G), 30, 0.25
+    cam_h, cam_w = G.shape[1:3]
+    model = yolov5.YoloV5s(num_classes=1, width_mult=width, depth_mult=0.33)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros(
+        (1, tool.INPUT, tool.INPUT, 3)))
+    params = variables["params"]
+    rest = {k: v for k, v in variables.items() if k != "params"}
+    imgs = np.zeros((n, tool.INPUT, tool.INPUT, 3), np.float32)
+    for i in range(n):
+        im = jax.image.resize(jnp.asarray(G[i], jnp.float32),
+                              (tool.INPUT, tool.INPUT), "linear") / 255.0
+        imgs[i] = np.asarray(jnp.stack([im, im, im], -1))
+    tgts = [tool.build_targets_np(B[i], cam_w, cam_h) for i in range(n)]
+    levels = len(tgts[0])
+    T = [tuple(np.stack([tgts[i][lvl][j] for i in range(n)])
+               for j in range(4)) for lvl in range(levels)]
+
+    def loss_fn(params, img, tgt):
+        raw = model.apply({"params": params, **rest}, img)
+        total, parts = 0.0, jnp.zeros(4)
+        for lvl in range(levels):
+            obj_t, xy_t, wh_t, mask = tgt[lvl]
+            sig = jax.nn.sigmoid(raw[lvl])
+            bce = optax.sigmoid_binary_cross_entropy(raw[lvl][..., 4], obj_t)
+            wpos = 1.0 + 200.0 * obj_t
+            m = mask[..., None]
+            obj = (bce * wpos).mean()
+            xy = 8.0 * (jnp.where(m, (sig[..., 0:2] - xy_t) ** 2,
+                                  0.0).sum() / (m.sum() + 1.0))
+            wh = 8.0 * (jnp.where(m, (sig[..., 2:4] - wh_t) ** 2,
+                                  0.0).sum() / (m.sum() + 1.0))
+            cls = (optax.sigmoid_binary_cross_entropy(
+                raw[lvl][..., 5], obj_t) * wpos).mean()
+            total += obj
+            total += xy
+            total += wh
+            total += cls
+            parts = parts + jnp.stack([obj, cls, xy, wh])
+        return total, parts
+
+    tx = optax.adam(2e-3)
+    opt_state = tx.init(params)
+
+    @jax.jit
+    def step(params, opt_state, img, tgt):
+        (loss, parts), g = jax.value_and_grad(loss_fn, has_aux=True)(
+            params, img, tgt)
+        updates, opt_state = tx.update(g, opt_state)
+        return optax.apply_updates(params, updates), opt_state, loss, parts
+
+    rng = np.random.RandomState(0)
+    losses, terms = [], []
+    for it in range(steps):
+        idx = rng.randint(0, n - n_val, size=8)
+        tgt = [tuple(jnp.asarray(a[idx]) for a in T[lvl])
+               for lvl in range(levels)]
+        params, opt_state, loss, parts = step(params, opt_state,
+                                              jnp.asarray(imgs[idx]), tgt)
+        losses.append(float(loss))
+        terms.append(np.asarray(parts).astype(float).tolist())
+    dcfg = DetectorConfig(width_multiple=width, num_classes=1,
+                          input_size=tool.INPUT, conf_threshold=0.4)
+    det = YoloDetector(dcfg, SystemConfig().dynamic,
+                       variables={"params": params, **rest})
+    from coebslam_tpu_torch.tools.train_detector import mean_iou
+    miou = mean_iou(lambda g: np.asarray(det.detect(g)), G[n - n_val:],
+                    B[n - n_val:])[0]
+    return losses, terms, miou
+
+
 def main():
     args = sys.argv[1:]
+    if len(args) in (2, 3) and args[0] in ("jax", "port") \
+            and args[1] == "train-curve":
+        t0 = time.time()
+        out = run_train_curve(args[0], int(args[2]) if len(args) == 3
+                              else 700)
+        out.update(package=args[0], scene="train-curve",
+                   seconds=time.time() - t0)
+        print(json.dumps(out))
+        return
     if args[:2] == ["jax", "train-detector"] and len(args) <= 3:
         t0 = time.time()
         out = run_jax_train_detector(int(args[2]) if len(args) == 3
@@ -903,7 +1177,8 @@ def main():
         "orbit", "circuit", "kidnap", "selfdetect", "stereo", "mono",
         "host-replica", "driver-rt", "png", "host-loop",
         "host-reloc", "host-loop-full",
-        "host-reloc-full") + tuple(
+        "host-reloc-full", "rt-bank-loop", "rt-bank-reloc",
+        "host-epnp-reloc", "host-mono-loop") + tuple(
             f"host-{k}{f}" for k in ("stereo", "mono", "flow")
             for f in ("", "-full"))
     if pkg not in ("jax", "port") or scene not in scenes \

@@ -16,6 +16,7 @@ callable (``asarray`` makes that package's array from numpy); the
 ``run_*`` functions drive a ``System`` of either package and return the
 gates' numbers, ``*_failures`` the failed gates.
 """
+import contextlib
 import time
 
 import numpy as np
@@ -40,6 +41,30 @@ HOST_MONO_MAX_LOST_AFTER = 3
 HOST_MONO_MIN_POINTS = 100
 HOST_MONO_ATE_LIMIT_M = 0.25      # Sim3-aligned
 HOST_MONO_RETURN_LIMIT_M = 0.15   # from the frame's own earlier centre
+# [21]: the System's recovery through the Relocalizer's EPnP branch:
+# [15b]'s configuration on the room's orbit at 1.2 m radius (60 frames a
+# lap), frames 0-45 tracked, 3 black frames, then frame 15 again: 2.4 m
+# from frame 45's pose, beyond the fused step's widened gate
+# (slam/tracking.py: the search radius widens at most 3x while lost), so
+# the lost state's retry fails and the tracker's relocalization callback,
+# the Relocalizer, takes the frame: with no depth, through EPnP. ([15b]'s
+# own 0.8 m orbit is too narrow: on the H100 the port's map recovered
+# frame 12 from frame 45 through the widened gate.)
+HOST_EPNP_ORBIT = dict(n_frames=60, radius=1.2)
+HOST_EPNP_TRACK = 46
+HOST_EPNP_RETURN = 15
+HOST_EPNP_VOCAB_FRAMES = range(0, HOST_EPNP_TRACK, 4)
+# [20]: the monocular Sim3 loop closure. No rendered circuit makes the JAX
+# package's monocular System close a loop (ROADMAP queue 4), so [20] closes
+# one on [21]'s map: the keyframes of the last third of the session (by
+# sequence) are moved, with every point they observe, by a similarity of
+# scale HOST_MONO_LOOP_DRIFT["scale"] about their mean centre (points the
+# earlier keyframes also observe are copied first), as a monocular map
+# that drifts in scale sees a place it returns to; the newest keyframe is
+# then closed against the oldest (compute_sim3 with scale, correct with
+# the free-scale pose graph and the global BA).
+HOST_MONO_LOOP_DRIFT = dict(scale=1.2, yaw=0.06, shift=0.1, n_moved=1)
+HOST_MONO_LOOP_GAIN = 0.8        # keyframe Sim3 ATE after < 0.8 x drifted
 # [15c]: the flow motion check on the walker scene: the first 25 frames
 # of the room's 0.35 m orbit of 50.
 N_HOST_FLOW = 25
@@ -149,9 +174,11 @@ def host_stereo_failures(s):
     return bad
 
 
-def run_host_mono(sysm, frames, black, gt, ate):
-    """Drive [15b]: the tracked frames, the black ones, then frame
-    HOST_MONO_RETURN again; the gates' numbers (tests/test_monocular.py's:
+def run_host_mono(sysm, frames, black, gt, ate, ret=HOST_MONO_RETURN,
+                  before_return=None):
+    """Drive [15b] (or [21]): the tracked frames, the black ones, then
+    frame ``ret`` again (``before_return()``, when given, is called just
+    before it); the gates' numbers (tests/test_monocular.py's:
     over the tracked frames the first OK, the frames lost after it, the
     live points and the Sim3 ATE from the first OK on; then the state
     after the blackout and on the return, with the return's camera centre
@@ -171,12 +198,14 @@ def run_host_mono(sysm, frames, black, gt, ate):
     for j in range(HOST_MONO_BLACK):
         sysm.track_monocular(black, stamp=(n + j) / 30.0)
     out["after_black"] = sysm.get_tracking_state()
+    if before_return is not None:
+        before_return()
     t0 = time.perf_counter()
-    state, k = sysm.track_monocular(frames[HOST_MONO_RETURN],
+    state, k = sysm.track_monocular(frames[ret],
                                     stamp=(n + HOST_MONO_BLACK + 1) / 30.0)
     out.update(return_state=state, return_inliers=int(k),
                return_ms=(time.perf_counter() - t0) * 1e3)
-    _, R0, t0_ = sysm.tracker.trajectory[HOST_MONO_RETURN]
+    _, R0, t0_ = sysm.tracker.trajectory[ret]
     st = sysm.tracker.state
     out["return_err_m"] = float(np.linalg.norm(
         -st.pose_R.T @ st.pose_t + np.asarray(R0).T @ np.asarray(t0_)))
@@ -204,6 +233,154 @@ def host_mono_failures(s):
         bad.append(f"after the blackout {s['after_black']}, return "
                    f"{s['return_state']} off by {s['return_err_m']} m")
     return bad
+
+
+def host_epnp_frames(synthetic, cam, device=None):
+    """[21]'s grey frames (the port's renderer, on ``device``) and their
+    true camera centres."""
+    planes = synthetic.make_room(seed=0, device=device)
+    poses = synthetic.camera_trajectory(**HOST_EPNP_ORBIT)[:HOST_EPNP_TRACK]
+    return [synthetic.render(cam, p, planes)[0] for p in poses], \
+        pose_centres(poses)
+
+
+def host_mono_frame_of(k, n, ret):
+    """The scene frame behind run_host_mono's k-th stamp (k / 30 s) for
+    ``n`` tracked frames and the return frame ``ret``."""
+    if k < n:
+        return k
+    if k == n + HOST_MONO_BLACK + 1:
+        return ret
+    raise ValueError(f"stamp {k} is a black frame")
+
+
+def host_epnp_failures(s):
+    """[21]'s gates on a run_host_mono result whose ``return_reloc`` lists
+    the return frame's relocalize calls (``reloc_calls``) and
+    ``return_pnp`` counts its EPnP RANSACs: [15b]'s gates, and the return
+    taken by the Relocalizer through EPnP."""
+    bad = host_mono_failures(s)
+    calls = s["return_reloc"]
+    if not (s["return_pnp"] >= 1 and calls and calls[-1]["ok"]
+            and calls[-1]["branch"] == "epnp"):
+        bad.append(f"the return not recovered through EPnP: "
+                   f"{s['return_pnp']} EPnP RANSACs, calls {calls}")
+    return bad
+
+
+def drift_late_keyframes(m, scale, yaw, shift, n_moved):
+    """Move the ``n_moved`` newest keyframes of a map arena (either
+    package's, numpy) by the world similarity X -> c + scale * R_y(yaw)
+    (X - c) + d, c their mean centre and d ``shift`` times the keyframes'
+    extent along x: each keeps its orientation relative to the moved world
+    and sees its points at ``scale`` times their depth, so its
+    observations stay exact. A point that an older keyframe also observes
+    is copied for the moved keyframes (older keyframes' slots that still
+    name a copy's recycled id, a removed point's, are cleared). Returns
+    (the moved keyframes, the copies' ids)."""
+    kfs = m.valid_keyframes()
+    order = kfs[np.argsort(m.kf_seq[kfs])]
+    moved = [int(k) for k in order[-n_moved:]]
+    early = [int(k) for k in order[:-n_moved]]
+    centres = np.asarray([-m.kf_R[k].T @ m.kf_t[k] for k in kfs])
+    c = centres[[list(kfs).index(k) for k in moved]].mean(0)
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    Rd = np.asarray([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    d = np.asarray([shift * np.ptp(centres[:, 0]), 0.0, 0.0])
+    td = c + d - scale * Rd @ c
+
+    def sim(X):
+        return (scale * X @ Rd.T + td).astype(np.float32)
+
+    seen_early = np.zeros(m.pt_pos.shape[0], bool)
+    for k in early:
+        o = m.kf_obs_pt[k]
+        seen_early[o[o >= 0]] = True
+    pids = np.unique(np.concatenate([m.kf_obs_pt[k][m.kf_obs_pt[k] >= 0]
+                                     for k in moved]))
+    shared = pids[seen_early[pids]]
+    own = pids[~seen_early[pids]]
+    copies = m.add_points(
+        sim(m.pt_pos[shared]), m.pt_desc[shared], moved[0],
+        normals=m.pt_normal[shared] @ Rd.T,
+        min_dists=scale * m.pt_min_dist[shared],
+        max_dists=scale * m.pt_max_dist[shared], angles=m.pt_angle[shared])
+    # A keyframe slot may still name a removed point's id, which add_points
+    # recycles: clear such slots in the other keyframes, so each copy is
+    # seen by the moved keyframes alone.
+    n = m.n_kf
+    stale = np.isin(m.kf_obs_pt[:n], copies)
+    stale[moved] = False
+    m.kf_obs_pt[:n][stale] = -1
+    to_copy = dict(zip(shared.tolist(), copies.tolist()))
+    m.pt_pos[own] = sim(m.pt_pos[own])
+    m.pt_normal[own] = m.pt_normal[own] @ Rd.T
+    m.pt_min_dist[own] *= scale
+    m.pt_max_dist[own] *= scale
+    m.mark_points_dirty(np.concatenate([own, copies]))
+    for k in moved:
+        R = m.kf_R[k] @ Rd.T
+        m.set_keyframe_pose(k, R, scale * m.kf_t[k] - R @ td)
+        for slot in np.nonzero(m.kf_obs_pt[k] >= 0)[0]:
+            p = int(m.kf_obs_pt[k, slot])
+            if p in to_copy:
+                m._remove_observation(p, k)
+                m.kf_obs_pt[k, slot] = to_copy[p]
+                m._add_observation(to_copy[p], k, int(slot))
+    for k in set(moved) | set(np.nonzero(stale.any(1))[0].tolist()):
+        m.update_covisibility(int(k))
+    m.bump()
+    return moved, copies
+
+
+def keyframe_ate(ate, m, gt_of_kf):
+    """Sim3-aligned ATE of a map's keyframe centres against
+    ``gt_of_kf(k)``, the true centre of keyframe k."""
+    kfs = m.valid_keyframes()
+    est = np.asarray([-m.kf_R[k].T @ m.kf_t[k] for k in kfs])
+    gt = np.asarray([gt_of_kf(int(k)) for k in kfs])
+    stamps = np.arange(len(kfs), dtype=np.float64)
+    return float(ate.ate_rmse(stamps, est, stamps, gt,
+                              with_scale=True)["rmse"])
+
+
+def close_drifted_loop(lc, m):
+    """[20]'s closure on a drifted map: the newest keyframe against the
+    oldest, through the loop closer ``lc`` (either package's):
+    compute_sim3 and, when it accepts, correct. Returns the pair, whether
+    it was accepted, the corrected Sim3 and its scale (S12's) and the
+    compute_sim3 gates' record."""
+    kfs = m.valid_keyframes()
+    order = kfs[np.argsort(m.kf_seq[kfs])]
+    kf, cand = int(order[-1]), int(order[0])
+    ok, S = lc.compute_sim3(kf, cand)
+    out = {"pair": [kf, cand], "accepted": bool(ok),
+           "debug": dict(lc.last_debug)}
+    if ok:
+        out.update(S=S, scale=float(S.s))
+        lc.correct(kf, cand, S)
+        lc.n_loops_closed += 1
+    return out
+
+
+def run_mono_loop(sysm, ate, gt_of_kf, around=None):
+    """[20] on a System (either package's) that ran [21]'s scene: the
+    keyframe Sim3 ATE (``gt_of_kf(k)`` the true centre of keyframe k), the
+    map drifted (``drift_late_keyframes``) and its ATE, the closure
+    (``close_drifted_loop``, inside the context ``around()`` when given)
+    and its seconds, and the ATE after it."""
+    lc, m = sysm.loop_closer, sysm.map
+    before = keyframe_ate(ate, m, gt_of_kf)
+    moved, copies = drift_late_keyframes(m, **HOST_MONO_LOOP_DRIFT)
+    drifted = keyframe_ate(ate, m, gt_of_kf)
+    with around() if around is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        out = close_drifted_loop(lc, m)
+        secs = time.perf_counter() - t0
+    out.update(close_s=secs, before_m=before, drifted_m=drifted,
+               after_m=keyframe_ate(ate, m, gt_of_kf), moved=moved,
+               n_copies=len(copies), n_kf=int(len(m.valid_keyframes())))
+    return out
 
 
 def run_host_flow(sysm, frames):

@@ -630,3 +630,86 @@ def test_train_detector_twenty_steps_on_card(card, tmp_path):
     assert losses[-5:].mean() < losses[:5].mean(), losses
     back = yolov5.from_flax_variables(tdet.load_variables_npz(path)[0])
     assert all(torch.equal(back[k], out["state_dict"][k]) for k in back)
+
+
+def test_train_detector_runs_bit_equal_on_card(card, tmp_path):
+    """Two runs of tools/train_detector on the card with the same
+    arguments (deterministic by default: PyTorch's deterministic
+    algorithms, cuDNN deterministic, TF32 off): every loss, every loss
+    term and every trained weight equal, and the same held-out IoU."""
+    from coebslam_tpu_torch.tools import train_detector
+    outs = [train_detector.run(train_detector.parse_args(
+        ["--width", "0.25", "--seqs", "1", "--frames", "40", "--steps",
+         "30", "--out", str(tmp_path / f"det{k}.npz")])) for k in range(2)]
+    a, b = outs
+    assert a["device"] == b["device"] == "cuda"
+    assert a["losses"] == b["losses"]
+    np.testing.assert_array_equal(a["terms"], b["terms"])
+    assert all(torch.equal(a["state_dict"][k], b["state_dict"][k])
+               for k in a["state_dict"])
+    assert a["miou"] == b["miou"]
+
+
+def test_bank_closure_after_ring_wrap_on_card(card):
+    """chip_smoke.py [19a] (rt_loop_scenes.py): the drifted circuit with an
+    8-row ring and the scene's vocabulary trained on the card, and its
+    odometry twin: tests/test_place_bank.py's gates, one FAST launch per
+    frame."""
+    from chip_smoke import _vocabulary_of
+    from rt_loop_scenes import (BANK_LIMITS, BANK_VOCAB, bank_loop_failures,
+                                bank_loop_summary, bank_vocab_frames,
+                                circuit_config, loop_scene, run_realtime)
+    from coebslam_tpu_torch import config
+    from coebslam_tpu_torch.eval import ate
+    from coebslam_tpu_torch.slam import vocabulary
+    from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
+    cfg = circuit_config(config)
+    n_circ, n_over = synthetic.N_CIRCUIT, synthetic.N_OVERLAP
+    frames, gt = loop_scene(card, range(n_circ + n_over),
+                            synthetic.DEPTH_BIAS, synthetic, cfg.camera)
+    voc = _vocabulary_of(extractor, vocabulary, cfg, frames,
+                         bank_vocab_frames(n_circ), BANK_VOCAB)
+    lim = RTLimits(**BANK_LIMITS)
+    fast_cuda.LAUNCHES = 0
+    res = run_realtime(RealtimeSlam(cfg, lim, vocabulary=voc,
+                                    maintain_every=1), frames)
+    res_odo = run_realtime(RealtimeSlam(cfg, lim, maintain_every=1), frames)
+    assert fast_cuda.LAUNCHES == 2 * len(frames)
+    s = bank_loop_summary(res, res_odo, gt, n_circ, n_over, ate)
+    assert not bank_loop_failures(s, lim.max_kf), s
+
+
+def test_epnp_recovery_on_card(card):
+    """chip_smoke.py [21] (host_sensor_scenes.py): the monocular System at
+    full width, frames 0-45 of the 1.2 m orbit, a blackout, frame 15: OK,
+    LOST,
+    OK within 15 cm, the return taken by the Relocalizer through EPnP
+    (its RANSACs counted), one FAST launch per frame."""
+    from chip_smoke import _vocabulary_of
+    from host_bow_scenes import RELOC_ATTEMPTS, reloc_calls, watch_calls
+    from host_sensor_scenes import (HOST_EPNP_RETURN, HOST_EPNP_TRACK,
+                                    HOST_EPNP_VOCAB_FRAMES, HOST_MONO_BLACK,
+                                    HOST_MONO_VOCAB, host_epnp_failures,
+                                    host_epnp_frames, host_mono_config,
+                                    run_host_mono)
+    from coebslam_tpu_torch import config
+    from coebslam_tpu_torch.eval import ate
+    from coebslam_tpu_torch.slam import vocabulary
+    from coebslam_tpu_torch.slam.system import System
+    cfg = host_mono_config(config)
+    frames, gt = host_epnp_frames(synthetic, cfg.camera, card)
+    voc = _vocabulary_of(extractor, vocabulary, cfg, [(g,) for g in frames],
+                         HOST_EPNP_VOCAB_FRAMES, HOST_MONO_VOCAB)
+    sysm = System(cfg, vocabulary=voc)
+    rec = watch_calls([], sysm.relocalizer,
+                      RELOC_ATTEMPTS["port"] + ("relocalize",))
+    mark = []
+    fast_cuda.LAUNCHES = 0
+    s = run_host_mono(sysm, frames, torch.zeros_like(frames[0]), gt, ate,
+                      HOST_EPNP_RETURN,
+                      before_return=lambda: mark.append(len(rec)))
+    assert fast_cuda.LAUNCHES == HOST_EPNP_TRACK + HOST_MONO_BLACK + 1
+    back = rec[mark[0]:]
+    s["return_reloc"] = reloc_calls(back)
+    s["return_pnp"] = sum("pnp" in r[0] for r in back)
+    assert not host_epnp_failures(s), s

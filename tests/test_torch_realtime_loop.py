@@ -6,10 +6,11 @@ the closure and the relocalization must come from the place bank.
 
 The scene vocabulary is trained by the JAX package exactly as those tests
 train it and carried over as ``Vocabulary(*voc)``; the frames are rendered
-by the port. The assertions are the JAX tests' own.
+by the port. The scene builders (the configuration, the ring limits, the
+frames and the bank relocalization's drive) are rt_loop_scenes.py's,
+shared with chip_smoke.py [6], [7] and [19]. The assertions are the JAX
+tests' own.
 """
-import dataclasses
-
 import numpy as np
 import jax
 import pytest
@@ -23,6 +24,8 @@ from coebslam_tpu_torch.eval import ate
 from coebslam_tpu_torch.slam import vocabulary as tvoc
 from coebslam_tpu_torch.slam.realtime import RealtimeSlam, RTLimits
 from coebslam_tpu_torch.utils import synthetic as tsyn
+from rt_loop_scenes import (BANK_LIMITS, CIRCUIT_LIMITS, centres, circuit_config, loop_scene,
+                            run_bank_reloc, run_realtime)
 
 from test_loop_e2e import circuit_poses as j_circuit_poses, \
     six_wall_room as j_six_wall_room
@@ -32,17 +35,13 @@ pytestmark = pytest.mark.slow
 
 N_CIRCUIT, N_OVERLAP, DEPTH_BIAS = tsyn.N_CIRCUIT, tsyn.N_OVERLAP, \
     tsyn.DEPTH_BIAS
-LIM = RTLimits(max_kf=64, spawn_per_kf=256, ba_window=6, local_window=6,
-               max_frames=256)
+LIM = RTLimits(**CIRCUIT_LIMITS)
 #: Ring of 8 rows vs ~27 keyframes/circuit: wraps >= 3x per lap.
-BANK_LIM = RTLimits(max_kf=8, spawn_per_kf=256, ba_window=4,
-                    local_window=4, max_frames=256,
-                    bank_cap=64, bank_words=64, bank_landmarks=128,
-                    seed_slots=256)
+BANK_LIM = RTLimits(**BANK_LIMITS)
 
 
 def rt_config():
-    return tcfg.config_from_dict(dataclasses.asdict(j_rt_config()))
+    return circuit_config(tcfg)
 
 
 def scene_vocabulary(frames):
@@ -63,28 +62,16 @@ def scene_vocabulary(frames):
 
 
 def render_frames(sched, bias=1.0):
-    cam = rt_config().camera
-    planes = tsyn.six_wall_room(device="cpu")
-    poses = tsyn.circuit_poses(max(sched) + 1)
-    out = []
-    for i in sched:
-        g, d = tsyn.render(cam, poses[i], planes)[:2]
-        out.append((g, d * bias))
-    gt = np.asarray([-poses[i].R.numpy().T @ poses[i].t.numpy()
-                     for i in sched])
-    return out, gt
+    return loop_scene("cpu", sched, bias, tsyn, rt_config().camera)
 
 
 def _run(frames, lim, voc, every):
     rt = RealtimeSlam(rt_config(), lim, device="cpu", vocabulary=voc,
                       maintain_every=every)
-    for i, (g, d) in enumerate(frames):
-        rt.track(g, d, stamp=i / 30.0)
-    return rt.finish()
+    return run_realtime(rt, frames)
 
 
-def _centers(res):
-    return np.asarray([-R.T @ t for R, t in zip(res["R"], res["t"])])
+_centers = centres
 
 
 @pytest.fixture(scope="module")
@@ -207,16 +194,10 @@ def test_bank_relocalization_to_evicted_place(circuit):
     n_half = N_CIRCUIT // 2
     rt = RealtimeSlam(rt_config(), BANK_LIM, device="cpu", vocabulary=voc,
                       maintain_every=1)
-    for i in range(n_half):
-        rt.track(frames[i][0], frames[i][1], stamp=i / 30.0)
     black = torch.zeros_like(frames[0][0])
     blackd = torch.zeros_like(frames[0][1])
-    for k in range(8):
-        rt.track(black, blackd, stamp=(n_half + k) / 30.0)
     revisit = list(range(6, 16))
-    for j, i in enumerate(revisit):
-        rt.track(frames[i][0], frames[i][1], stamp=(n_half + 8 + j) / 30.0)
-    res = rt.finish()
+    res = run_bank_reloc(rt, frames, (black, blackd), n_half)
 
     assert res["n_bank_reloc"] >= 1, "no bank relocalization applied"
     c = _centers(res)
