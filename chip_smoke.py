@@ -247,7 +247,25 @@ Phases (each one failing the run with a non-zero exit when it fails):
      LOST, OK within 15 cm of the centre the System gave frame 15 before, the return taken by the
      Relocalizer through EPnP (its RANSACs counted); the relocalize call's
      ms and host syncs; one FAST launch per frame.
-Each of [4], [6]-[15] and [16c] prints the JAX package's result on the CPU
+ 22. bench.py's dataset rows (replica_rows.py) at full length, through
+     RealtimeSlam(...).track then finish() on utils/replica.generate's
+     frames (grey uint8, depth uint16, the walker boxes) with
+     artifacts/vocab_1e5.npz:
+     a. the 300-frame out-and-back closure replica, depth x 1.05,
+        maintenance every 4 frames, and its odometry twin: >= 295 tracked,
+        a loop closed, ATE < 6 cm and below the twin's;
+     b. the 400-frame replica, maintenance every 8 frames, then
+        handoff.refine: >= 395 tracked, raw ATE < 8 cm, refined below raw;
+     c. the two-walker replica (200 frames, seed 1): >= 195 tracked, ATE
+        < 7 cm; the frames by walker boxes seen.
+     The four sessions run in processes of their own at CPU priority nice
+     10 (so the phases beside them keep the CPU), started right after [5]
+     (so [4]'s fps and [5]'s kernel times are measured alone) and joined
+     before the last line; every phase from [6] to [20] says in its line
+     that it ran beside them.
+     Prints fps, keyframes, loops, the maintenance dispatches' host ms and
+     device span (median, max) and one FAST launch per frame.
+Each of [4], [6]-[15], [16c] and [22] prints the JAX package's result on the CPU
 for the same scene and configuration beside its own, and the peak device
 memory.
 Each phase prints its seconds.
@@ -300,6 +318,14 @@ from rt_loop_scenes import (
     bank_loop_failures, bank_loop_summary, bank_reloc_failures,
     bank_reloc_summary, bank_vocab_frames, centres, circuit_config,
     loop_scene, run_bank_reloc, run_realtime)
+import replica_rows
+from replica_rows import card, dispatch_line, dispatch_summary, time_dispatches
+
+# [22] (replica_rows.py): bench.py's dataset rows at full length.
+ROW_TAGS = {"closure": "[22a]", "twin": "[22a]", "maint": "[22b]",
+            "walkers": "[22c]"}
+ROWS_JOIN_S = 900            # seconds to wait for them after [20]
+ROWS_NICE = 10               # [22]'s sessions yield the CPU to [6]-[20]
 
 N_FRAMES = 150
 ATE_LIMIT_M = 0.025
@@ -496,17 +522,6 @@ def _fail(msg):
     sys.exit(1)
 
 
-def card():
-    """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0:
-        _fail(f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0]
-
-
 def track_frames(rt, frames, lo, hi):
     """Track frames lo..hi-1 of a looped sequence ``frames = (gray, depth,
     boxes)`` at 30 fps stamps, then wait for the card."""
@@ -662,67 +677,12 @@ def mono_summary(ok, est, gt, ate):
             "ok": int(ok.sum()), "n": n, "ate_sim3_m": rmse}
 
 
-def time_dispatches(torch, rt, keep=None):
-    """Time each maintenance dispatch of ``rt`` without draining the card:
-    host ms of the call, CUDA events recorded before and after it, the
-    host's keyframe count, and the event, relocalization, bank closure and
-    bank relocalization counters before and after, kept on the card. ``dispatch_summary`` reads them
-    after the run. ``keep(args, out)``, when given, sees every dispatch."""
-    rec = []
-    step = rt.maint.step
-
-    def timed(st, ms, seed, **kw):
-        a, b = _events(torch)
-        t0 = time.perf_counter()
-        a.record()
-        out = step(st, ms, seed, **kw)
-        b.record()
-        rec.append(((time.perf_counter() - t0) * 1e3, a, b, kw.get("n_kf"),
-                    torch.stack([ms.n_events, ms.n_reloc, ms.n_bank_loops,
-                                 ms.n_bank_reloc]),
-                    torch.stack([out[1].n_events, out[1].n_reloc,
-                                 out[1].n_bank_loops, out[1].n_bank_reloc])))
-        if keep is not None:
-            keep((st, ms, seed, kw), out)
-        return out
-
-    rt.maint.step = timed
-    return rec
-
-
-def dispatch_summary(rec):
-    """Count, the keyframe count at the last dispatch, and for host ms and
-    the device span (first to last event) each: the median of the
-    dispatches with no loop event or relocalization, the max, and the
-    values of those with one."""
-    host = np.array([r[0] for r in rec])
-    span = np.array([r[1].elapsed_time(r[2]) for r in rec])
-    event = np.array([bool((r[4] != r[5]).any()) for r in rec])
-    out = {"dispatches": len(rec),
-           "n_kf_at_last": rec[-1][3] if rec else None}
-    for name, ms in (("host", host), ("span", span)):
-        quiet = ms[~event]
-        out[name] = {
-            "no_event_median_ms": float(np.median(quiet)) if quiet.size
-            else float("nan"),
-            "max_ms": float(ms.max()) if ms.size else float("nan"),
-            "event_ms": [round(float(x), 2) for x in ms[event]]}
-    return out
-
-
 def bank_dispatches(rec, which):
     """Host ms and device span of the dispatches of a ``time_dispatches``
     record that applied a bank closure (``which`` 2) or a bank
     relocalization (3)."""
     return [(round(r[0], 2), round(r[1].elapsed_time(r[2]), 2))
             for r in rec if bool(r[5][which] != r[4][which])]
-
-
-def dispatch_line(d):
-    return "; ".join(
-        f"{what}: no-event median {d[k]['no_event_median_ms']:.2f} ms, max "
-        f"{d[k]['max_ms']:.2f} ms, with an event {d[k]['event_ms']} ms"
-        for k, what in (("host", "host"), ("span", "device span")))
 
 
 def replica_host_frames(replica, n, device):
@@ -1810,6 +1770,28 @@ def rt_bank_phase(torch, fast_cuda, extractor, vocabulary, RealtimeSlam,
     return loop_launches + twin["launches"], rel["launches"]
 
 
+def replica_rows_phase(procs, t0, card_line):
+    """[22]: join ``replica_rows.start``'s sessions, print their lines with
+    the JAX package's CPU values, and fail on a failed session or gate.
+    Returns {row: summary}."""
+    rows, failed = replica_rows.join(procs, ROWS_JOIN_S)
+    for row, msg in failed.items():
+        print(f"[22] {row} session failed: {msg}", flush=True)
+    if failed:
+        _fail(f"[22] sessions failed: {sorted(failed)}")
+    lines, bad = replica_rows.row_lines(rows, card_line, ROW_TAGS)
+    for line in lines:
+        print(line, flush=True)
+    took = ", ".join(f"{r} {s['process_s']:.1f} s" for r, s in rows.items())
+    print(f"[22] the four sessions took {took} "
+          f"from their start to their summaries, beside [6]-[20] (joined "
+          f"{time.perf_counter() - t0:.1f} s after they started); their "
+          f"seconds and fps carry that contention", flush=True)
+    if bad:
+        _fail(f"[22] gates: {bad}")
+    return rows
+
+
 def train_phase(torch, out_path):
     """[18]: tools/train_detector.run on the card at TRAIN_DETECTOR."""
     from coebslam_tpu_torch.models import detector as detector_mod, yolov5
@@ -1883,11 +1865,15 @@ def main():
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     laps = [t_start]
+    beside = []              # [22]'s sessions, while they run
 
     def lap(name):
-        """Print the seconds of the phase that ends here."""
+        """Print the seconds of the phase that ends here (and whether [22]'s
+        sessions ran beside it)."""
         now = time.perf_counter()
-        print(f"[{name}] phase {now - laps[-1]:.1f} s", flush=True)
+        print(f"[{name}] phase {now - laps[-1]:.1f} s"
+              + (" (beside [22]'s four sessions)" if beside else ""),
+              flush=True)
         laps.append(now)
     # ---- 1. card + build
     card_line = card()
@@ -2056,6 +2042,16 @@ def main():
         _fail(f"FAST times not finite: {times}")
 
     lap("5")
+    # ---- 22. bench.py's dataset rows: four sessions in processes of their
+    # own, started here (after [4] and [5], whose fps and kernel times are
+    # measured alone) and joined before the last line.
+    rows_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_rows_")
+    rows_t0 = time.perf_counter()
+    beside.append(replica_rows.start(rows_dir.name, nice=ROWS_NICE))
+    print(f"[22] started "
+          f"{', '.join(f'{r} ({n} frames)' for r, n in replica_rows.FULL.items())} "
+          f"in processes of their own at CPU priority nice {ROWS_NICE}; the "
+          f"phases [6]-[20] run beside them", flush=True)
     # ---- 6. the loop circuit (bench.py run_loop_event)
     clim = RTLimits(**CIRCUIT_LIMITS)
     n_circ = synthetic.N_CIRCUIT + synthetic.N_OVERLAP
@@ -2639,6 +2635,10 @@ def main():
     hml_launches = mono_loop_phase(torch, fast_cuda, GlobalBA, ate,
                                    mono_sys, gt_of_kf, card_line)
     lap("20")
+    # ---- 22. join bench.py's dataset rows
+    rows = replica_rows_phase(beside.pop(), rows_t0, card_line)
+    rows_dir.cleanup()
+    lap("22")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
@@ -2672,7 +2672,9 @@ def main():
                              "rt_bank_loop": bank_loop_launches,
                              "rt_bank_reloc": bank_reloc_launches,
                              "host_epnp_reloc": hep_launches,
-                             "host_mono_loop": hml_launches},
+                             "host_mono_loop": hml_launches,
+                             **{f"replica_{r}": s["launches"]
+                                for r, s in rows.items()}},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,10 @@ class OrbConfig:
     masked_budget_scale: float = 0.7
     max_keypoints: int = 2048
 
+    @property
+    def scale_factors(self) -> Tuple[float, ...]:
+        return tuple(self.scale_factor ** i for i in range(self.n_levels))
+
 
 @dataclass(frozen=True)
 class DynamicConfig:
@@ -633,3 +637,6 @@ def _from_filestorage(data: dict) -> SystemConfig:
             orb[int_key] = int(orb[int_key])
     return SystemConfig(camera=_build(CameraConfig, cam),
                         orb=_build(OrbConfig, orb))
+
+
+DEFAULT_CONFIG = SystemConfig()

@@ -9,6 +9,12 @@ import torch
 from ..config import CameraConfig
 
 
+def intrinsic_matrix(cam: CameraConfig, dtype=torch.float32, device=None):
+    """The 3x3 pinhole matrix K of ``cam``."""
+    return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy],
+                         [0.0, 0.0, 1.0]], dtype=dtype, device=device)
+
+
 def project(cam: CameraConfig, pts_cam):
     """Camera-frame points [..., 3] -> pixels [..., 2]."""
     z = pts_cam[..., 2]

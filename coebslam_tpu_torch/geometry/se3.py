@@ -26,6 +26,19 @@ class SE3(NamedTuple):
         t = torch.zeros(*batch_shape, 3, dtype=dtype, device=device)
         return SE3(R, t)
 
+    @staticmethod
+    def from_matrix(T) -> "SE3":
+        """From [..., 4, 4] (or [..., 3, 4]) matrices."""
+        return SE3(T[..., :3, :3], T[..., :3, 3])
+
+    def as_matrix(self):
+        """[..., 4, 4] homogeneous matrices."""
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=self.t.dtype,
+                              device=self.t.device).expand(
+            *self.t.shape[:-1], 4)
+        top = torch.cat([self.R, self.t[..., None]], dim=-1)
+        return torch.cat([top, bottom[..., None, :]], dim=-2)
+
     def inverse(self) -> "SE3":
         Rt = self.R.transpose(-1, -2)
         return SE3(Rt, -torch.einsum("...ij,...j->...i", Rt, self.t))
@@ -34,6 +47,17 @@ class SE3(NamedTuple):
         """self @ other (apply ``other`` first)."""
         return SE3(self.R @ other.R,
                    torch.einsum("...ij,...j->...i", self.R, other.t) + self.t)
+
+    def apply(self, points):
+        """Transform points [..., N, 3] (or one point [3]) by this pose."""
+        if points.ndim >= 2:
+            return torch.einsum("...ij,...nj->...ni", self.R, points) \
+                + self.t[..., None, :]
+        return self.R @ points + self.t
+
+    def normalize(self) -> "SE3":
+        """The rotation projected back onto SO(3) by SVD."""
+        return SE3(so3.normalize_matrix(self.R), self.t)
 
 
 def exp(xi) -> SE3:
@@ -62,3 +86,8 @@ def retract(T: SE3, xi) -> SE3:
 def transform_points(T: SE3, pts):
     """Apply T to points [..., 3] with full broadcasting."""
     return torch.einsum("...ij,...j->...i", T.R, pts) + T.t
+
+
+def relative(T_a: SE3, T_b: SE3) -> SE3:
+    """T_a * T_b^-1: the transform mapping frame b to frame a."""
+    return T_a.compose(T_b.inverse())

@@ -110,6 +110,14 @@ def orthonormalize(R, iterations: int = 2):
     return R
 
 
+def normalize_matrix(R):
+    """The nearest rotation to R [..., 3, 3] by SVD projection."""
+    u, _, vt = torch.linalg.svd(R)
+    det = torch.linalg.det(u @ vt)
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
+    return (u * d[..., None, :]) @ vt
+
+
 def quat_to_matrix(q):
     """Unit quaternion (w, x, y, z) -> rotation matrix: [..., 4] ->
     [..., 3, 3]."""

@@ -1,6 +1,9 @@
-"""Per-box blur score (the COEB Laplacian blur gate).
+"""Per-box blur scores (the COEB motion-blur gate).
 
-Counterpart of the Laplacian path of ``coebslam_tpu/ops/blur.py``.
+Counterpart of ``coebslam_tpu/ops/blur.py``. The reference thresholds the
+Laplacian's variance per box (``Frame::detect_laplacian``); the Brenner,
+Tenengrad and energy variants it tried and rejected are kept too,
+selected by ``box_blur_scores(metric=)``.
 """
 from __future__ import annotations
 
@@ -27,15 +30,54 @@ def laplacian_map(img):
             - 4.0 * img)
 
 
-def box_blur_scores(img, boxes):
-    """Std of the Laplacian inside each box ([B]); absent boxes +inf."""
+def brenner_map(img):
+    """Brenner gradient (I(x+2) - I(x))², edge-padded on the right."""
+    p = F.pad(img[None], (0, 2, 0, 0), mode="replicate")[0]
+    d = p[:, 2:] - p[:, :-2]
+    return d * d
+
+
+def tenengrad_map(img):
+    """Tenengrad: the squared 3x3 Sobel gradient magnitude."""
+    p = F.pad(img[None], (1, 1, 1, 1), mode="replicate")[0]
+    gx = (p[1:-1, 2:] - p[1:-1, :-2]) * 2.0 \
+        + (p[:-2, 2:] - p[:-2, :-2]) + (p[2:, 2:] - p[2:, :-2])
+    gy = (p[2:, 1:-1] - p[:-2, 1:-1]) * 2.0 \
+        + (p[2:, 2:] - p[:-2, 2:]) + (p[2:, :-2] - p[:-2, :-2])
+    return gx * gx + gy * gy
+
+
+def energy_map(img):
+    """Energy of gradient (I(x+1) - I(x))² + (I(y+1) - I(y))²."""
+    px = F.pad(img[None], (0, 1, 0, 0), mode="replicate")[0]
+    py = F.pad(img[None], (0, 0, 0, 1), mode="replicate")[0]
+    dx = px[:, 1:] - px[:, :-1]
+    dy = py[1:, :] - py[:-1, :]
+    return dx * dx + dy * dy
+
+
+_METRICS = {
+    "laplacian": laplacian_map,
+    "brenner": brenner_map,
+    "tenengrad": tenengrad_map,
+    "energy": energy_map,
+}
+
+
+def box_blur_scores(img, boxes, metric: str = "laplacian"):
+    """Sharpness per box ([B]): the std of the Laplacian inside the box
+    (the reference's scale, thresholded at 4.2), or for the other metrics
+    the mean response; absent boxes (xmin < 0) +inf."""
     h, w = img.shape
     masks = box_mask(h, w, boxes).to(img.dtype)
-    resp = laplacian_map(img)
+    resp = _METRICS[metric](img)
     area = torch.clamp(masks.sum(dim=(1, 2)), min=1.0)
     mean = (resp[None] * masks).sum(dim=(1, 2)) / area
-    var = (((resp[None] - mean[:, None, None]) ** 2) * masks).sum(dim=(1, 2)) \
-        / area
-    score = torch.sqrt(var)
+    if metric == "laplacian":
+        var = (((resp[None] - mean[:, None, None]) ** 2) * masks
+               ).sum(dim=(1, 2)) / area
+        score = torch.sqrt(var)
+    else:
+        score = mean
     present = boxes[:, 0] >= 0.0
     return torch.where(present, score, torch.full_like(score, float("inf")))

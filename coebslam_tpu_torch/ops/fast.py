@@ -48,6 +48,18 @@ def strength_map(img, pad: str = "edge"):
     return best.reshape(img.shape)
 
 
+def fast_score_map(img, threshold: float):
+    """Dense FAST-9/16 score of [H, W]: the edge-padded strength where it
+    exceeds ``threshold`` and lies 3 px inside the border, 0 elsewhere."""
+    strength = strength_map(img)
+    h, w = img.shape
+    row = torch.arange(h, device=img.device)[:, None]
+    col = torch.arange(w, device=img.device)[None, :]
+    valid = (row >= 3) & (row < h - 3) & (col >= 3) & (col < w - 3)
+    return torch.where(valid & (strength > threshold), strength,
+                       torch.zeros_like(strength))
+
+
 def nms_3x3(score):
     """Keep pixels that are the strict maximum of their 8-neighbourhood
     (-inf outside the image); [..., H, W]."""

@@ -331,6 +331,40 @@ def _pixels_to_normalized_h(H_px, cam: CameraConfig):
     return Kinv @ H_px @ K
 
 
+def reconstruct(p1_px, p2_px, valid, cam: CameraConfig, idx_h=None,
+                idx_f=None, *, generator=None, n_hypotheses: int = 200,
+                sigma: float = 1.0,
+                min_triangulated: int = 50) -> ReconstructionResult:
+    """Two-view initialisation on the host's route (Initializer.cc):
+    ``fit_models``, one read of the RH choice (RH > 0.40), then only the
+    chosen model's hypotheses are checked and the first with the most good
+    points wins. ``used_homography`` is a Python bool here."""
+    models = fit_models(p1_px, p2_px, valid, idx_h, idx_f,
+                        generator=generator, n_hypotheses=n_hypotheses,
+                        sigma=sigma)
+    K, _, c, f = intrinsics(cam, str(p1_px.device))
+    p1 = (p1_px - c) / f
+    p2 = (p2_px - c) / f
+    thr_n2 = (4.0 * sigma / cam.fx) ** 2
+    rh = models.score_h / torch.clamp(models.score_h + models.score_f,
+                                      min=1e-9)
+    use_h = bool(rh > 0.40)
+    if use_h:
+        Rs, ts, _ = decompose_homography(
+            _pixels_to_normalized_h(models.H, cam))
+        inl = models.inliers_h
+    else:
+        Rs, ts = decompose_essential(K.T @ models.F @ K)
+        inl = models.inliers_f
+    good, X, err, _ = check_rt(Rs, ts, p1, p2, inl)
+    good = good & (err < thr_n2)
+    ns = good.sum(-1)
+    b = int(torch.argmax(ns))
+    return ReconstructionResult(ok=ns[b] >= min_triangulated, R=Rs[b],
+                                t=ts[b], points=X[b], good=good[b],
+                                used_homography=use_h)
+
+
 def reconstruct_graph(p1_px, p2_px, valid, cam: CameraConfig, idx_h=None,
                       idx_f=None, *, generator=None, n_hypotheses: int = 200,
                       sigma: float = 1.0,

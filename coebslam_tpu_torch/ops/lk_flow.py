@@ -1,4 +1,4 @@
-"""Pyramidal Lucas-Kanade optical flow and Harris corners.
+"""Pyramidal Lucas-Kanade optical flow and Harris / Shi-Tomasi corners.
 
 Counterpart of ``coebslam_tpu/ops/lk_flow.py``, the stand-ins for the
 OpenCV calls of the reference's motion check (goodFeaturesToTrack with
@@ -68,13 +68,24 @@ def harris_response(img, k: float = 0.04, block: int = 3):
     return det - k * trace * trace
 
 
+def min_eig_response(img, block: int = 3):
+    """Shi-Tomasi response: the structure tensor's smaller eigenvalue
+    (goodFeaturesToTrack's default)."""
+    a, b, c = _structure_tensor(img, block)
+    half_tr = 0.5 * (a + c)
+    rad = torch.sqrt(torch.clamp(half_tr * half_tr - (a * c - b * b),
+                                 min=0.0))
+    return half_tr - rad
+
+
 def good_features(img, n_points: int, quality: float = 0.01,
-                  min_distance: int = 8):
-    """Up to ``n_points`` corners: Harris response above ``quality`` x the
+                  min_distance: int = 8, use_harris: bool = True):
+    """Up to ``n_points`` corners: the Harris response (or with
+    ``use_harris=False`` the Shi-Tomasi one) above ``quality`` x the
     maximum, strict 3x3 maxima, the strongest per ``min_distance`` cell
     (ties to the lowest index), with a quadratic sub-pixel offset.
     Returns (uv [n, 2] float32 (x, y), -1 where invalid; valid [n])."""
-    resp = harris_response(img)
+    resp = harris_response(img) if use_harris else min_eig_response(img)
     resp = torch.where(resp > quality * torch.max(resp), resp,
                        torch.zeros_like(resp))
     resp_nms = fast_mod.nms_3x3(resp)

@@ -71,6 +71,26 @@ def window_penalty(uv_query, uv_target, radius):
     return torch.where(inside, 0.0, BIG)
 
 
+def level_penalty(level_query, level_target, min_shift: int, max_shift: int):
+    """[N, M] additive penalty: 0 where the target's octave lies within
+    [level_query + min_shift, level_query + max_shift], BIG elsewhere
+    (SearchByProjection's octave window)."""
+    diff = level_target[None, :] - level_query[:, None]
+    ok = (diff >= min_shift) & (diff <= max_shift)
+    return torch.where(ok, 0.0, BIG)
+
+
+def stereo_penalty(ur_pred, ur_target, radius):
+    """[N, M] additive penalty on the right coordinate: 0 where
+    |ur_pred - ur_target| <= ``radius`` (a scalar or [N]) or the target has
+    no depth (ur_target < 0), BIG elsewhere."""
+    d = torch.abs(ur_pred[:, None] - ur_target[None, :])
+    r = radius[:, None] if isinstance(radius, torch.Tensor) \
+        and radius.dim() > 0 else radius
+    ok = (ur_target[None, :] < 0) | (d <= r)
+    return torch.where(ok, 0.0, BIG)
+
+
 def rotation_consistency(angles_query, angles_target, match: MatchResult,
                          histo_length: int = 30, top_bins: int = 3):
     """Keep matches whose angle difference falls in the 3 most popular

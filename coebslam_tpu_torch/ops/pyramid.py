@@ -82,6 +82,13 @@ def build_pyramid(img, cfg: OrbConfig) -> List[torch.Tensor]:
     return levels
 
 
+def rgb_to_gray(img_rgb):
+    """[H, W, 3] uint8 or float -> [H, W] float32 luma with
+    cv::cvtColor's RGB2GRAY coefficients."""
+    img = img_rgb.to(torch.float32)
+    return 0.299 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2]
+
+
 @functools.lru_cache(maxsize=8)
 def gaussian_kernel_1d(ksize: int = 7, sigma: float = 2.0) -> tuple:
     """1-D Gaussian taps (cv::getGaussianKernel for sigma > 0)."""

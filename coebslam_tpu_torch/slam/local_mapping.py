@@ -560,6 +560,21 @@ class LocalMapper:
     # culling of redundant keyframes
     # ------------------------------------------------------------------ #
 
+    # The stages one at a time, dispatch then write-back (as the tests of
+    # either package drive them).
+    def create_new_map_points(self, kf_id: int) -> None:
+        pending = self._tri_dispatch(kf_id)
+        if pending is not None:
+            self._tri_writeback(kf_id, pending)
+
+    def fuse_neighbors(self, kf_id: int) -> None:
+        pending = self._fuse_dispatch(kf_id)
+        if pending is not None:
+            self._fuse_writeback(kf_id, pending)
+
+    def run_local_ba(self, kf_id: int) -> None:
+        self._ba_writeback(kf_id, self._ba_dispatch(kf_id))
+
     def cull_keyframes(self, kf_id: int) -> None:
         """A covisible keyframe whose points are >= 90 % observed by >= 3
         other keyframes is redundant."""

@@ -43,6 +43,10 @@ from .keyframe_db import KeyFrameDatabase
 from .map import MapArena
 
 LOOP_SEED = 13
+# The JAX package's public constant, which neither package reads; kept so
+# that every public name of the JAX package has its counterpart here
+# (tests/test_torch_surface.py).
+MAX_EDGES = 4096
 FUSE_POINTS = 4096   # loop points projected into the corrected group
 FUSE_CHUNK = 8       # group keyframes per batch of the fuse search
 

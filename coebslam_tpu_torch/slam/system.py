@@ -44,6 +44,7 @@ import torch
 
 from ..config import SystemConfig
 from ..io import trajectory
+from ..ops import pyramid as pyramid_ops
 from ..ops.fundamental import RansacSampler
 from ..utils.device import resolve_device
 from ..utils.metrics import MetricsCollector
@@ -55,6 +56,10 @@ from .map import MapArena
 from .relocalization import Relocalizer
 from . import dynamic as dynamic_mod
 from .tracking import InitSampler, LOST, NOT_INITIALIZED, Sampler, Tracker
+
+SENSOR_RGBD = "rgbd"
+SENSOR_MONOCULAR = "monocular"
+SENSOR_STEREO = "stereo"
 
 
 def _np_box_mask(h: int, w: int, boxes: np.ndarray) -> np.ndarray:
@@ -392,11 +397,10 @@ class System:
     # ------------------------------------------------------------------ #
 
     def _to_gray(self, img) -> torch.Tensor:
-        img = self.tracker._up(img).to(torch.float32)
+        img = self.tracker._up(img)
         if img.dim() == 3:
-            return 0.299 * img[..., 0] + 0.587 * img[..., 1] \
-                + 0.114 * img[..., 2]
-        return img
+            return pyramid_ops.rgb_to_gray(img)
+        return img.to(torch.float32)
 
     def _pad_boxes(self, boxes) -> np.ndarray:
         if isinstance(boxes, torch.Tensor):

@@ -17,6 +17,8 @@ Run from the repository root:
     python3 cpu_reference.py {jax,port} {host-epnp-reloc,host-mono-loop}
     python3 cpu_reference.py jax train-detector [STEPS]
     python3 cpu_reference.py {jax,port} train-curve [STEPS]
+    python3 cpu_reference.py {jax,port} {closure-replica,replica-maint,two-walkers} [N]
+    python3 cpu_reference.py jax rt-bank-snapshot
 
 Drives one package on the CPU over one scene at the configuration of the
 matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
@@ -124,6 +126,20 @@ matching ``chip_smoke.py`` phase, and prints one JSON line with seconds:
   dataset, targets, network and Adam with its ``loss_fn`` transcribed to
   return the terms too (the tool prints the loss every 100 steps only).
   ``profile_train_detector.py --cpu-json`` reads the port's.
+- ``closure-replica``, ``replica-maint``, ``two-walkers`` ([22],
+  ``replica_rows.py``'s rows ``closure`` with its ``twin``, ``maint`` and
+  ``walkers``; N frames, by default the full 300, 400 and 200): bench.py's
+  dataset rows on the realtime path. The JAX package writes its replica
+  (``generate(root)``) and reads it back as bench.py does; the port
+  renders it in memory (``replica_rows.run_row`` on the CPU). Frames
+  tracked, ATE, keyframes, seconds; the closure row's loops and events
+  and its odometry twin's ATE; ``replica-maint``'s loops,
+  relocalizations and the refined ATE after ``handoff.refine``;
+  ``two-walkers``' frames by the number of walker boxes they carry.
+- ``rt-bank-snapshot``: [19a] through the JAX package on the frames,
+  scene vocabulary and draws that tests/test_torch_place_bank_parity.py
+  shares with the port, and the state before the dispatch that applies
+  the bank closure written to that test's ``tests/data/rt_bank_closing.npz``.
 - ``refine orbit|circuit`` ([10]): the session of [4] or [6], then the
   handoff (``to_arena``), global BA and ``refined_trajectory``: the
   arena's keyframes and points, the observations cut (``truncated_obs``),
@@ -1011,6 +1027,72 @@ def run_rt_bank(pkg, scene):
     return out
 
 
+REPLICA_SCENES = {"closure-replica": "closure", "replica-maint": "maint",
+                  "two-walkers": "walkers"}
+
+
+def run_replica_row(pkg, scene, n=None):
+    """[22] (``replica_rows.py``) on either package at ``n`` frames: the
+    row's summary, and for ``closure-replica`` its odometry twin's."""
+    import replica_rows as rr
+    row = REPLICA_SCENES[scene]
+    n = n or rr.FULL[row]
+    rows = [row] + (["twin"] if row == "closure" else [])
+    if pkg == "port":
+        import torch
+        torch.set_num_threads(4)
+        return {r: rr.run_row(r, n, "cpu") for r in rows}
+    return {r: _jax_replica_row(rr, r, n) for r in rows}
+
+
+def _jax_replica_row(rr, row, n):
+    """One ``replica_rows`` row through the JAX package: its replica
+    written and read back as bench.py's ``_load_replica`` does."""
+    import tempfile
+    import types
+    from coebslam_tpu.config import SystemConfig
+    from coebslam_tpu.eval import ate
+    from coebslam_tpu.io import tum
+    from coebslam_tpu.slam import handoff, vocabulary
+    from coebslam_tpu.slam.realtime import RealtimeSlam
+    from coebslam_tpu.utils import replica
+    cfg = SystemConfig()
+    kw = rr.schedule(row, n)
+    kw.pop("frames", None)
+    root = tempfile.mkdtemp(prefix=f"replica_{row}_")
+    replica.generate(root, **kw)
+    seq = tum.load_tum_sequence(root)
+    bstamps, bboxes = replica.load_boxes(os.path.join(root, "boxes.txt"),
+                                         max_boxes=cfg.dynamic.max_boxes)
+    frames = []
+    for i in range(n):
+        stamp, gray, depth = seq.load_frame_raw(i)
+        b = np.zeros((0, 4), np.float32)
+        if len(bstamps):
+            j = int(np.argmin(np.abs(bstamps - stamp)))
+            if abs(bstamps[j] - stamp) < 0.03:
+                b = bboxes[j][bboxes[j][:, 0] >= 0]
+        frames.append(types.SimpleNamespace(stamp=stamp, gray=gray,
+                                            depth=depth, boxes=b))
+    stamps, gt = seq.gt_stamps[:n], seq.gt_poses[:n, :3]
+    voc = vocabulary.load(rr.VOCAB) if row in ("closure", "maint") else None
+    every = rr.CLOSURE_MAINTAIN_EVERY if row == "closure" else rr.MAINT_EVERY
+    rt = RealtimeSlam(cfg, vocabulary=voc, maintain_every=every)
+    seconds = rr.track(rt, row, frames)
+    res = rt.finish()
+    out = rr.summary(row, res, frames, stamps, gt, ate, seconds)
+    if row == "maint":
+        t0 = time.perf_counter()
+        m, kf_ids, n_opt = handoff.refine(res, SystemConfig())
+        traj = handoff.refined_trajectory(res, m, kf_ids)
+        out.update(refined_ate_m=rr._ate(ate, res, stamps, gt,
+                                         [P[:, :3] for P in traj],
+                                         [P[:, 3] for P in traj]),
+                   kf_refined=int(n_opt),
+                   refine_s=time.perf_counter() - t0)
+    return out
+
+
 def run_jax_train_detector(steps: int) -> dict:
     """The JAX tool's training run (see ``train-detector`` above)."""
     import re
@@ -1160,6 +1242,26 @@ def main():
                                      else 700)
         out.update(package="jax", scene="train-detector",
                    seconds=time.time() - t0)
+        print(json.dumps(out))
+        return
+    if args == ["jax", "rt-bank-snapshot"]:
+        t0 = time.time()
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from test_torch_place_bank_parity import SNAPSHOT, \
+            save_closing_snapshot
+        k = save_closing_snapshot()
+        print(json.dumps({"package": "jax", "scene": "rt-bank-snapshot",
+                          "dispatch": k, "path": os.path.relpath(SNAPSHOT),
+                          "bytes": os.path.getsize(SNAPSHOT),
+                          "seconds": time.time() - t0}))
+        return
+    if len(args) in (2, 3) and args[0] in ("jax", "port") \
+            and args[1] in REPLICA_SCENES \
+            and (len(args) == 2 or args[2].isdigit()):
+        t0 = time.time()
+        out = run_replica_row(args[0], args[1],
+                              int(args[2]) if len(args) == 3 else None)
+        out.update(package=args[0], scene=args[1], seconds=time.time() - t0)
         print(json.dumps(out))
         return
     refine = len(args) == 3 and args[1] == "refine"

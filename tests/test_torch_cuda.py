@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels against
 their plain PyTorch versions, and the maintenance program, the detector,
 the global BA, the stereo frame, the two-view initializer, the host
-System, RANSAC EPnP, the Sim3 refinement, the LK flow motion check and
+System, RANSAC EPnP, the Sim3 refinement, the LK flow motion check, the
+blur metrics and the Shi-Tomasi response, and
 the entry step against their CPU runs, the multi-device dry run over two
 ranks sharing the card, and detector training, on the card. Without a
 card they skip.
@@ -557,6 +558,38 @@ def test_lk_flow_and_dynamic_frontend_on_card_match_cpu(card):
               "outlier_valid"):
         assert torch.equal(getattr(rg, f).cpu(), getattr(rc, f)), f
     assert int(rc.n_outliers) > 0
+
+
+@pytest.mark.parametrize("metric", ["laplacian", "brenner", "tenengrad",
+                                    "energy"])
+def test_blur_metrics_and_min_eig_on_card_match_cpu(card, frame, metric):
+    """The blur metrics' maps and box scores and the Shi-Tomasi response
+    on the card against the CPU, on a rendered frame: maps and scores
+    within 1e-5 relative (an absolute floor of 1e-5 x the map's largest
+    magnitude), absent boxes +inf on both; good_features(use_harris=False)
+    selects the same corners."""
+    from coebslam_tpu_torch.ops import blur, lk_flow
+    boxes = torch.tensor([[100.0, 80.0, 300.0, 400.0],
+                          [-1.0, -1.0, -1.0, -1.0],
+                          [350.0, 10.0, 639.0, 200.0]], device=card)
+    fc = frame.cpu()
+    maps = {"laplacian": blur.laplacian_map, "brenner": blur.brenner_map,
+            "tenengrad": blur.tenengrad_map, "energy": blur.energy_map}
+    pairs = [(maps[metric](frame), maps[metric](fc)),
+             (lk_flow.min_eig_response(frame),
+              lk_flow.min_eig_response(fc))]
+    for g, c in pairs:
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-5,
+                                   atol=1e-5 * float(c.abs().max()))
+    sg = blur.box_blur_scores(frame, boxes, metric=metric).cpu()
+    sc = blur.box_blur_scores(fc, boxes.cpu(), metric=metric)
+    assert torch.isinf(sg[1]) and torch.isinf(sc[1])
+    torch.testing.assert_close(sg[[0, 2]], sc[[0, 2]], rtol=1e-5, atol=0)
+    (ug, vg), (uc, vc) = (lk_flow.good_features(frame.to(d), 500,
+                                                use_harris=False)
+                          for d in (card, "cpu"))
+    assert torch.equal(vg.cpu(), vc) and int(vc.sum()) > 100
+    assert float((ug.cpu() - uc)[vc].abs().max()) < 1e-3
 
 
 def test_tum_rgbd_driver_on_card(card, tmp_path):
