@@ -1,0 +1,508 @@
+"""CPU tests of the benchmark harness.
+
+Run from the repository root: ``python -m pytest benchmark/tests -q``.
+The end-to-end cases drive a whole run of a cell on the CPU at a reduced
+size (320 x 240, one session, a few frames), the card's look skipped;
+the cases marked ``cuda`` run on the card only.
+"""
+import ast
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH)
+sys.path.insert(0, BENCH)
+sys.path.insert(0, ROOT)
+
+from slambench import checks, counts, fleet, reference, spec, stats, traffic  # noqa: E402
+
+FORBIDDEN = {"jax", "jaxlib", "flax", "coebslam_tpu"}
+
+
+def _bench():
+    return spec.load(ROOT)
+
+
+def _small(cell):
+    """The cell at a size a CPU test run holds: 320 x 240, one session of
+    12 frames, the detector at 160^2."""
+    c = json.loads(json.dumps(cell))
+    cam = c["config"]["camera"]
+    for k in ("fx", "fy", "cx", "cy", "bf"):
+        cam[k] = cam[k] / 2.0
+    cam["width"], cam["height"] = cam["width"] // 2, cam["height"] // 2
+    c["config"]["orb"].update(n_features=500, max_keypoints=1024)
+    if "detector" in c["config"]:
+        c["config"]["detector"]["input_size"] = 160
+    c["traffic"].update(sessions=1, frames=12, warmup_frames=3,
+                        sample_frames=2)
+    if "ate_cm" in c["limits"]:
+        # The cell's ATE limit is set for 640 x 480; at half the width the
+        # features are coarser (4.14 cm on 12 frames, my CPU run).
+        c["limits"]["ate_cm"] = 10.0
+    return c
+
+
+# ------------------------------------------------------------------ #
+# The files resolve, and a new cell needs only new files
+# ------------------------------------------------------------------ #
+
+def test_every_cell_config_and_metric_resolves():
+    b = _bench()
+    names = {m["name"] for m in b["end_to_end"] + b["per_layer"]}
+    for w in b["workloads"]:
+        c = spec.cell(ROOT, b, w["name"])
+        assert c["config"]["name"] == w["config"]
+        assert int(c["traffic"]["sessions"]) >= 1
+        assert "setup_s" in {m["name"] for m in c["end_to_end"]}
+        assert c["per_layer"], w["name"]
+        assert set(c["limits"]) >= {"feat_mismatch_pct", "match_mismatch_pct",
+                                    "pose_gap_mm", "missing_outputs"}
+    for n in names:
+        assert callable(spec.reader(n))
+    for conf in b["configs"]:
+        with open(os.path.join(ROOT, conf["file"])) as f:
+            cfg = json.load(f)
+        assert cfg["name"] == conf["name"] and cfg["source"] == conf["source"]
+        assert cfg["reduced"] == conf["reduced"]
+        assert os.path.exists(os.path.join(ROOT, cfg["vocabulary_file"]))
+
+
+def test_names_units_and_sizes_keep_to_the_contract():
+    import re
+    b = _bench()
+    name = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+    unit = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+    for m in b["end_to_end"] + b["per_layer"]:
+        assert name.match(m["name"]) and unit.match(m["unit"])
+        assert m["better"] in ("lower", "higher")
+    for w in b["workloads"]:
+        assert name.match(w["name"]) and w["chips"] in (1, 4)
+        assert len(w["why"]) <= 200
+    for m in b["end_to_end"]:
+        assert 0.01 <= m["bound"] <= 0.25
+    assert 1 <= b["run_seconds"] <= 51
+    assert len(json.dumps(b)) < 64 * 1024
+
+
+def test_a_cell_added_in_a_copy_is_found_without_edits(tmp_path):
+    root = tmp_path / "checkout"
+    shutil.copytree(BENCH, root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    b = _bench()
+    b["workloads"].append({"name": "stereo_euroc.fleet2",
+                           "config": "stereo_euroc", "traffic": "fleet2",
+                           "chips": 1, "why": "a later cell"})
+    for m in b["per_layer"]:
+        if "stereo_euroc.fleet" in m.get("workloads", []):
+            m["workloads"].append("stereo_euroc.fleet2")
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    cells = root / "benchmark" / "cells"
+    t = json.loads((cells / "stereo_euroc.fleet.json").read_text())
+    t["sessions"] = 2
+    (cells / "stereo_euroc.fleet2.json").write_text(json.dumps(t))
+    shutil.copy(root / "benchmark" / "limits" / "stereo_euroc.fleet.json",
+                root / "benchmark" / "limits" / "stereo_euroc.fleet2.json")
+    c = spec.cell(str(root), b, "stereo_euroc.fleet2",
+                  bench_dir=str(root / "benchmark"))
+    assert c["traffic"]["sessions"] == 2
+    assert {m["name"] for m in c["per_layer"]} >= {"track_ms", "frame_mfu"}
+    # A metric added the same way.
+    (root / "benchmark" / "metrics" / "new_metric.py").write_text(
+        "def read(run):\n    return 1.5\n")
+    assert spec.reader("new_metric", str(root / "benchmark"))(None) == 1.5
+    # A configuration on another entry and a traffic mix with its own
+    # cadence and depth bias, the same way.
+    conf = json.loads((root / "benchmark" / "configs"
+                       / "rgbd_tum_walking.json").read_text())
+    conf.update(name="mono_tum1", sensor="monocular", detector_enabled=False,
+                entry={"method": "track_mono",
+                       "args": ["gray", "stamp", "boxes"]})
+    (root / "benchmark" / "configs" / "mono_tum1.json").write_text(
+        json.dumps(conf))
+    b["configs"].append({"name": "mono_tum1", "source": "x",
+                         "file": "benchmark/configs/mono_tum1.json",
+                         "reduced": [], "why": "x"})
+    b["workloads"].append({"name": "mono_tum1.loop", "config": "mono_tum1",
+                           "traffic": "loop", "chips": 1, "why": "x"})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    t = json.loads((cells / "rgbd_tum_walking.fleet.json").read_text())
+    t.update(maintain_every=1, detect_every=4, depth_scale=1.06)
+    (cells / "mono_tum1.loop.json").write_text(json.dumps(t))
+    shutil.copy(root / "benchmark" / "limits" / "rgbd_tum_walking.fleet.json",
+                root / "benchmark" / "limits" / "mono_tum1.loop.json")
+    c = spec.cell(str(root), b, "mono_tum1.loop",
+                  bench_dir=str(root / "benchmark"))
+    assert c["config"]["entry"]["method"] == "track_mono"
+    assert (c["traffic"]["maintain_every"], c["traffic"]["detect_every"],
+            c["traffic"]["depth_scale"]) == (1, 4, 1.06)
+
+
+def test_the_entry_and_spans_come_from_the_configuration():
+    from slambench import session
+    from coebslam_tpu_torch.slam import frame, realtime
+    for w in _bench()["workloads"]:
+        cfg = spec.cell(ROOT, _bench(), w["name"])["config"]
+        assert hasattr(realtime.RealtimeSlam, cfg["entry"]["method"])
+        for label, path in cfg["spans"].items():
+            tgt = session.span_target(path, {"detector": "d", "maint": None})
+            if path.startswith("maint."):
+                assert tgt is None
+            elif path.startswith("detector."):
+                assert tgt == ("d", path.split(".")[1])
+            else:
+                assert callable(getattr(*tgt)), path
+    assert session.span_target("slam.frame.process_rgbd", {}) == (
+        frame, "process_rgbd")
+    fr = traffic.Frames(np.zeros((2, 4, 4), np.uint8),
+                        np.ones((2, 4, 4), np.uint16),
+                        [np.zeros((0, 4), np.float32),
+                         np.ones((1, 4), np.float32)], None, None)
+    empty = np.zeros((0, 4), np.float32)
+    a = session.frame_args(["gray", "stamp", "boxes"], fr, 1, 0.5, empty)
+    assert np.shares_memory(a[0], fr.gray[1]) and a[1] == 0.5
+    assert a[2] is fr.boxes[1]
+    assert session.frame_args(["boxes"], fr, 0, 0.0, empty)[0] is empty
+
+
+def test_depth_scale_biases_the_depth_images_alone():
+    cell = _small(spec.cell(ROOT, _bench(), "rgbd_tum_walking.fleet"))
+    a = _frames(cell)
+    cell["traffic"]["depth_scale"] = 1.06
+    b = _frames(cell)
+    assert np.array_equal(a.gray, b.gray) and np.array_equal(a.t_cw, b.t_cw)
+    m = a.second > 0
+    ratio = b.second[m].astype(np.float64) / a.second[m]
+    assert abs(np.median(ratio) - 1.06) < 1e-3
+
+
+# ------------------------------------------------------------------ #
+# Nothing of JAX
+# ------------------------------------------------------------------ #
+
+def _imports(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_module_of_the_benchmark_imports_jax_or_the_jax_package():
+    found = {}
+    for d, _, files in os.walk(BENCH):
+        for f in files:
+            if f.endswith(".py"):
+                p = os.path.join(d, f)
+                bad = set(_imports(p)) & FORBIDDEN
+                if bad:
+                    found[p] = bad
+    assert not found
+    # The port's name begins with the JAX package's: whole names only.
+    assert "coebslam_tpu_torch".split(".")[0] not in FORBIDDEN
+
+
+def test_reference_imports_nothing_of_the_port():
+    for f in ("reference.py", "traffic.py", "counts.py", "stats.py"):
+        mods = set(_imports(os.path.join(BENCH, "slambench", f)))
+        assert "coebslam_tpu_torch" not in mods, f
+
+
+def test_a_run_loads_no_module_of_jax():
+    code = ("import sys; sys.path[:0] = [%r, %r]; import run; run._environment();"
+            "from slambench import fleet, session; import coebslam_tpu_torch;"
+            "from coebslam_tpu_torch.slam import realtime, maintenance;"
+            "from coebslam_tpu_torch.models import detector;"
+            "print(session.forbidden_modules())" % (BENCH, ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+# ------------------------------------------------------------------ #
+# Frozen counts and statistics
+# ------------------------------------------------------------------ #
+
+def test_fast_work_counts_each_live_pixel_and_both_maps():
+    b, ops = counts.fast_work(48, 64, 2, 2.0)
+    live = 48 * 64 + 24 * 32
+    assert b == 4 * live + 2 * 4 * 2 * 48 * 64
+    assert ops == 97 * live
+    assert counts.fast_work(480, 640, 8, 1.2) == (23462928, 92201604)
+
+
+def test_yolo_conv_flops_from_shapes():
+    det = {"num_classes": 80, "width_multiple": 0.5, "depth_multiple": 0.33,
+           "input_size": 64}
+    flops = counts.yolo_conv_flops(det)
+    # The stem alone: 32 output channels at 32 x 32, 6 x 6 x 3 taps.
+    assert flops > 2 * 32 * 32 * 32 * 108
+    det["input_size"] = 128
+    assert counts.yolo_conv_flops(det) == 4 * flops
+
+
+def test_hamming_flops_from_the_configurations_features():
+    cfg = {"sensor": "rgbd", "orb": {"n_features": 4, "max_keypoints": 8},
+           "limits": {"local_window": 1, "reuse_chunks": 1,
+                      "spawn_per_kf": 2, "seed_slots": 1}}
+    assert counts.hamming_flops(cfg) == 2 * 256 * (4 * 4 * 5 + 16)
+    cfg["sensor"] = "stereo"
+    assert counts.hamming_flops(cfg) == 2 * 256 * (4 * 4 * 5 + 32)
+    # The padded slot capacity does not count.
+    cfg["orb"]["max_keypoints"] = 2048
+    assert counts.hamming_flops(cfg) == 2 * 256 * (4 * 4 * 5 + 32)
+
+
+def test_percentile_union_gaps_and_ate():
+    assert stats.percentile(list(range(101)), 95) == 95.0
+    iv = np.array([[0, 2], [1, 3], [5, 6]], float)
+    u = stats.union(iv)
+    assert u.tolist() == [[0, 3], [5, 6]]
+    assert stats.gaps(u, 0, 10).tolist() == [[3, 5], [6, 10]]
+    gt = np.random.RandomState(0).randn(20, 3)
+    R = np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1]], float)
+    assert stats.ate_rmse(gt @ R.T + 1.0, gt) < 1e-9
+
+
+def test_ping_pong_and_session_seeds():
+    assert [traffic.ping_pong(k, 4) for k in range(8)] == [0, 1, 2, 3, 2,
+                                                           1, 0, 1]
+    s = {traffic.session_seed(2 ** 31 + 17, i) for i in range(8)}
+    assert len(s) == 8 and all(0 <= x < 2 ** 30 for x in s)
+    assert traffic.session_seed(5, 1) == traffic.session_seed(5, 1)
+
+
+def test_pose_gap_is_precise_near_the_identity():
+    a = 1e-6
+    R = torch.tensor([[math.cos(a), -math.sin(a), 0], [math.sin(a),
+                      math.cos(a), 0], [0, 0, 1]], dtype=torch.float64)
+    g = checks.pose_gap_mm(R, torch.zeros(3), torch.eye(3), torch.zeros(3))
+    assert abs(g - 1e-3) < 1e-9
+
+
+# ------------------------------------------------------------------ #
+# The reference against the port at a small size
+# ------------------------------------------------------------------ #
+
+def _frames(cell, seed=7):
+    cfg = cell["config"]
+    c = cfg["camera"]
+    cam = traffic.Camera(c["fx"], c["fy"], c["cx"], c["cy"], c["width"],
+                         c["height"], c["fps"])
+    return traffic.make_frames(dict(cell["traffic"], frames=4), cam,
+                               cfg["sensor"], seed, 1, "cpu",
+                               baseline=c["bf"] / c["fx"])
+
+
+@pytest.mark.parametrize("name", ["rgbd_tum_walking.fleet",
+                                  "stereo_euroc.fleet"])
+def test_reference_extraction_equals_the_port(name):
+    from coebslam_tpu_torch import config as cm
+    from coebslam_tpu_torch.ops import extractor
+    cell = _small(spec.cell(ROOT, _bench(), name))
+    fr = _frames(cell)
+    cfg = cm.config_from_dict(cell["config"])
+    img = torch.from_numpy(fr.gray[1]).float()
+    nf = torch.tensor(400)
+    mask = torch.zeros(img.shape, dtype=torch.bool)
+    mask[40:120, 60:140] = True
+    p = extractor.extract(img, cfg.orb, n_features=nf, dynamic_mask=mask,
+                          area_mode=torch.tensor(False))
+    r = reference.extract(img, checks.ref_orb(cell["config"]), nf, mask,
+                          torch.tensor(False))
+    pct, same = checks.compare_feats(p, r)
+    assert pct == 0.0 and int(same.sum()) > 100
+
+
+def test_reference_stereo_depth_equals_the_port():
+    from coebslam_tpu_torch import config as cm
+    from coebslam_tpu_torch.slam import frame
+    cell = _small(spec.cell(ROOT, _bench(), "stereo_euroc.fleet"))
+    fr = _frames(cell)
+    cfg = cm.config_from_dict(cell["config"])
+    left = torch.from_numpy(fr.gray[1]).float()
+    right = torch.from_numpy(fr.second[1]).float()
+    fd = frame.process_stereo(left, right, cfg.camera, cfg.orb)
+    orb = checks.ref_orb(cell["config"])
+    fl = reference.extract(left, orb)
+    frr = reference.extract(right, orb)
+    d, ur = reference.stereo_depth(fl, frr, checks.ref_cam(cell["config"]),
+                                   orb.scale_factor)
+    assert int((d > 0).sum()) > 50
+    assert torch.equal(d, fd.depth) and torch.equal(ur, fd.ur)
+
+
+def test_reference_detector_equals_the_port():
+    from coebslam_tpu_torch import config as cm
+    from coebslam_tpu_torch.models import detector as det_mod
+    cell = _small(spec.cell(ROOT, _bench(), "rgbd_tum_walking.fleet"))
+    fr = _frames(cell)
+    cfg = cm.config_from_dict(cell["config"])
+    g = torch.from_numpy(fr.gray[0])
+    size = cell["config"]["detector"]["input_size"]
+    model = reference.make_detector(cell["config"]["detector"], 99,
+                                    reference.detector_input(g, size), "cpu")
+    det = det_mod.YoloDetector(cfg.detector, cfg.dynamic,
+                               variables=model.state_dict(), device="cpu")
+    with torch.no_grad():
+        hp = det.heads(torch.from_numpy(fr.gray[2]))
+        hr = model(reference.detector_input(torch.from_numpy(fr.gray[2]),
+                                            size))
+    for a, b in zip(hp, hr):
+        assert torch.equal(a, b)
+    assert 0.1 < float(hr[0].std()) < 50.0
+
+
+# ------------------------------------------------------------------ #
+# Whole runs on the CPU: sound, and with a fault planted underneath
+# ------------------------------------------------------------------ #
+
+def _run(name, opts=None, seconds=2.0, trace=0, seed=2 ** 31 + 5):
+    cell = _small(spec.cell(ROOT, _bench(), name))
+    o = {"device": "cpu"}
+    o.update(opts or {})
+    return fleet.run(cell, seed, seconds, trace, time.monotonic(), o,
+                     log=lambda s: None)
+
+
+def _schema(res, trace):
+    assert set(res) >= {"correct", "attempted", "failed", "metrics",
+                        "device", "checks"}
+    assert list(res)[-1] == "checks"
+    for k, c in res["checks"].items():
+        assert set(c) == {"value", "limit"}
+    for m in res["metrics"].values():
+        assert set(m) == {"value", "unit"}
+    assert set(res["device"]) >= {"platform", "kind", "count",
+                                  "memory_peak_bytes"}
+    if trace:
+        assert "busy_s" in res["device"] and "window_s" in res["device"]
+        assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+@pytest.mark.parametrize("name", ["rgbd_tum_walking.fleet",
+                                  "stereo_euroc.fleet"])
+def test_a_sound_run_is_correct(name):
+    # Long enough for a keyframe in the window, whose spawn is compared.
+    res, code = _run(name, seconds=4.0)
+    assert code == 0
+    _schema(res, 0)
+    assert res["correct"], res["checks"]
+    assert res["attempted"] >= 1 and res["failed"] == 0
+    assert {"fps", "frame_ms_p95", "setup_s"} <= set(res["metrics"])
+
+
+def test_a_traced_run_reports_the_layers():
+    res, code = _run("rgbd_tum_walking.fleet", trace=1)
+    assert code == 0
+    _schema(res, 1)
+    assert res["correct"]
+    m = res["metrics"]
+    assert {"host_ms_per_frame", "track_host_ms"} <= set(m)
+    # No device on the CPU: no device-trace metric, no device number.
+    assert not {"track_ms", "device_idle_pct", "frame_mfu"} & set(m)
+
+
+@pytest.mark.parametrize("name,fault",
+                         [("rgbd_tum_walking.fleet", f) for f in checks.FAULTS]
+                         + [("stereo_euroc.fleet", f)
+                            for f in checks.KEYFRAME_FAULTS])
+def test_a_planted_fault_makes_the_run_incorrect(name, fault):
+    res, code = _run(name, {"fault": fault}, seconds=4.0)
+    assert res is not None
+    assert res["correct"] is False, (fault, res["checks"])
+    if fault == "spawn_depth_off":
+        # Caught by the spawn comparison itself, not by chance.
+        assert res["checks"]["spawn_gap_mm"]["value"] > 1.0
+        assert res["checks"]["spawn_mismatch_pct"]["value"] == 0.0
+    if fault == "ba_skipped":
+        assert res["checks"]["ba_pose_gap_mm"]["value"] \
+            > res["checks"]["ba_pose_gap_mm"]["limit"]
+
+
+# ------------------------------------------------------------------ #
+# On the card
+# ------------------------------------------------------------------ #
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rgbd_tum_walking.fleet",
+                                  "stereo_euroc.fleet"])
+def test_the_command_prints_one_result_line(card, name):
+    out = subprocess.run(
+        [sys.executable, os.path.join(BENCH, "run.py"), "--workload", name,
+         "--seed", "4242", "--seconds", "5", "--trace", "0"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    _schema(res, 0)
+    assert res["device"]["platform"] == "gpu"
+
+
+@pytest.mark.parametrize("name", ["rgbd_tum_walking.fleet",
+                                  "stereo_euroc.fleet"])
+def test_the_control_is_not_correct(name):
+    """The reference one precision down in the program's place (on the CPU
+    TF32 changes nothing, so the bfloat16 pose solve and stereo depth
+    carry it here)."""
+    import control
+    res, code = control.run_control(name, 2 ** 31 + 9, 2.0,
+                                    {"device": "cpu"}, _small)
+    assert res is not None
+    assert res["correct"] is False, res["checks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rgbd_tum_walking.fleet",
+                                  "stereo_euroc.fleet"])
+def test_the_control_is_not_correct_at_the_cells_size(card, name):
+    """On the card at the cell's own size and load, three seeds."""
+    import control
+    for seed in (71, 72, 73):
+        res, code = control.run_control(name, seed, 10.0)
+        assert res is not None
+        assert res["correct"] is False, res["checks"]
+
+
+def test_traces_of_the_sessions_merge_on_one_clock():
+    """Two sessions' device intervals overlap: the card is busy for their
+    union, idle stretches are named by the span the sessions were in."""
+    def session(busy, track):
+        iv = np.array(busy, float) * 1e9
+        return {"hand": [0.0], "back": [0.1], "done": [0.2], "h_end": 10.0,
+                "attempted": 1, "peak_bytes": 1, "chip_used_bytes": 1,
+                "maint_host_ms": [], "syncs": 3,
+                "trace": {"busy": iv, "kernels": len(busy),
+                          "by_name": {"_Z11fast_kernelPKf": (2, 2e6)},
+                          "spans": {"track": {
+                              "calls": 1, "host_ns": 1e9, "device_ns": 5e8,
+                              "kernels": 1,
+                              "intervals": np.array(track, float) * 1e9}}}}
+    cell = {"config": {}}
+    res = [session([[1, 3], [6, 7]], [[0, 10]]),
+           session([[2, 4]], [[0, 5]])]
+    run = fleet.Run(cell, res, 0.0, 1.0, {"fast": 1e-3}, 1e-3)
+    assert abs(run.busy_s - 4.0) < 1e-9 and run.window_s == 10.0
+    assert run.on_device and run.kernels == 3 and run.syncs == 6
+    assert dict(run.gaps) == {"host:track": 6.0}
+    assert run.spans["track"]["device_ms"] == 1000.0
+    read = spec.reader("fast_roofline_pct")
+    assert abs(read(run) - 100.0 * 4 * 1e-3 / 4e-3) < 1e-9
+    assert abs(spec.reader("device_idle_pct")(run) - 60.0) < 1e-9
