@@ -16,6 +16,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils import metrics
+
 
 class FundamentalResult(NamedTuple):
     F: torch.Tensor            # [3, 3]
@@ -126,9 +128,10 @@ def find_fundamental_ransac(p1, p2, valid, *, idx=None,
     # On the card, cuSOLVER's gesvd: the default driver tries gesvdj first
     # and reads its convergence flags back to the host (a synchronisation).
     driver = "gesvd" if A.is_cuda else None
-    vt = torch.linalg.svd(A, full_matrices=False, driver=driver)[2]
-    F = vt[-1].reshape(3, 3)
-    u, s, vt2 = torch.linalg.svd(F, driver=driver)
+    with metrics.host_read("f_refit_svd", 2):   # cuSOLVER's info, twice
+        vt = torch.linalg.svd(A, full_matrices=False, driver=driver)[2]
+        F = vt[-1].reshape(3, 3)
+        u, s, vt2 = torch.linalg.svd(F, driver=driver)
     s = s * (torch.arange(3, device=s.device) < 2).to(s.dtype)   # [1, 1, 0]
     F = (u * s[None, :]) @ vt2
 

@@ -13,6 +13,7 @@ from ..config import CameraConfig, OrbConfig
 from ..geometry import camera as cam_ops
 from ..ops import extractor, matching
 from ..ops.extractor import Features
+from ..utils import metrics
 
 
 class FrameData(NamedTuple):
@@ -82,7 +83,8 @@ def process_stereo(gray_left, gray_right, cam: CameraConfig, orb: OrbConfig,
                                 dynamic_mask=dynamic_mask,
                                 area_mode=area_mode)
     feats_r = extractor.extract(gray_right, orb, n_features=n_features)
-    depth, ur = match_stereo(feats_l, feats_r, cam, orb)
+    with metrics.span("stereo_match"):
+        depth, ur = match_stereo(feats_l, feats_r, cam, orb)
     inv_s2 = level_inv_sigma2(feats_l.level, orb.scale_factor)
     obs = torch.cat([feats_l.uv, ur[:, None]], dim=-1)
     return FrameData(feats=feats_l, depth=depth, ur=ur, inv_sigma2=inv_s2,

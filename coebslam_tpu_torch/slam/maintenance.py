@@ -46,6 +46,7 @@ from ..geometry import so3 as so3_mod
 from ..ops import brief, matching as matching_ops, procrustes
 from ..ops.fundamental import sample_indices
 from ..optim import pose_graph as pg
+from ..utils import metrics
 from ..utils.device import resolve_device
 from . import realtime as rt
 from . import vocabulary as voc_mod
@@ -187,7 +188,8 @@ def _kf_landmarks(st: rt.RTState, row, lim):
 
 
 def _words(desc_u8, valid, dv: voc_mod.DeviceVocabulary):
-    cur, _ = voc_mod.descend(dv, desc_u8)
+    with metrics.span("descend"):
+        cur, _ = voc_mod.descend(dv, desc_u8)
     return torch.where(valid, dv.word_id[cur], torch.full_like(cur, -1))
 
 
@@ -314,112 +316,127 @@ def maintenance_step(st: rt.RTState, ms: MaintState, lo: int, hi: int,
     neg1 = _const(-1, torch.int64, dev)
 
     for lid in range(lo, hi):
-        row = lid % K
-        kp_ok = st.kf_kp_valid[row]
-        words = _words(st.kf_desc[row], kp_ok, dv)
-        bow, has_words = _bow_vector(words, kp_ok, dv.word_weight, n_words)
-        _, ph, ok = _kf_landmarks(st, row, lim)
+        with metrics.span("bow"):
+            row = lid % K
+            kp_ok = st.kf_kp_valid[row]
+            words = _words(st.kf_desc[row], kp_ok, dv)
+            bow, has_words = _bow_vector(words, kp_ok, dv.word_weight, n_words)
+            _, ph, ok = _kf_landmarks(st, row, lim)
 
-        # Detection against the pre-update database (self not included).
-        scores = _l1_scores(bow, ms.kf_bow)
-        db_ok = (ms.bow_lid >= 0) & (ms.bow_lid == st.kf_lid)
-        elig = db_ok & (ms.bow_lid <= lid - MIN_KF_GAP)
-        sc = torch.where(elig, scores, -1.0)
-        best = torch.argmax(sc)
-        best_sc = _take(sc, best)
-        best_lid = _take(ms.bow_lid, best)
-        # min-score: the weakest similarity among recent temporal
-        # neighbours (the realtime stand-in for covisible neighbours).
-        nbr = db_ok & (ms.bow_lid >= lid - 8) & (ms.bow_lid <= lid - 1)
-        min_sc = torch.amin(torch.where(nbr, scores, 1.0))
-        hit_ring = (best_sc > 0.0) & nbr.any() & has_words \
-            & (best_sc >= min_sc * cfg.loop.min_score_factor)
+            # Detection against the pre-update database (self not included).
+            scores = _l1_scores(bow, ms.kf_bow)
+            db_ok = (ms.bow_lid >= 0) & (ms.bow_lid == st.kf_lid)
+            elig = db_ok & (ms.bow_lid <= lid - MIN_KF_GAP)
+            sc = torch.where(elig, scores, -1.0)
+            best = torch.argmax(sc)
+            best_sc = _take(sc, best)
+            best_lid = _take(ms.bow_lid, best)
+            # min-score: the weakest similarity among recent temporal
+            # neighbours (the realtime stand-in for covisible neighbours).
+            nbr = db_ok & (ms.bow_lid >= lid - 8) & (ms.bow_lid <= lid - 1)
+            min_sc = torch.amin(torch.where(nbr, scores, 1.0))
+            hit_ring = (best_sc > 0.0) & nbr.any() & has_words \
+                & (best_sc >= min_sc * cfg.loop.min_score_factor)
 
-        # Bank detection: places the ring evicted, against bank-side
-        # neighbour scores of the same truncation.
-        bsc_all = _sparse_scores(bow, ms.bank_bow_w, ms.bank_bow_i)
-        evicted = st.kf_lid[torch.clamp(ms.bank_lid, min=0) % K] != ms.bank_lid
-        b_elig = (ms.bank_lid >= 0) & evicted \
-            & (ms.bank_lid <= lid - MIN_KF_GAP)
-        bsc = torch.where(b_elig, bsc_all, -1.0)
-        bbest = torch.argmax(bsc)
-        bbest_sc = _take(bsc, bbest)
-        bbest_lid = _take(ms.bank_lid, bbest)
-        b_nbr = (ms.bank_lid >= 0) & (ms.bank_lid >= lid - 8) \
-            & (ms.bank_lid <= lid - 1)
-        b_min = torch.amin(torch.where(b_nbr, bsc_all, 1.0))
-        hit_bank = (bbest_sc > 0.0) & b_nbr.any() & has_words \
-            & (bbest_sc >= b_min * cfg.loop.min_score_factor) & ~hit_ring
+            # Bank detection: places the ring evicted, against bank-side
+            # neighbour scores of the same truncation.
+            bsc_all = _sparse_scores(bow, ms.bank_bow_w, ms.bank_bow_i)
+            evicted = st.kf_lid[torch.clamp(ms.bank_lid, min=0) % K] \
+                != ms.bank_lid
+            b_elig = (ms.bank_lid >= 0) & evicted \
+                & (ms.bank_lid <= lid - MIN_KF_GAP)
+            bsc = torch.where(b_elig, bsc_all, -1.0)
+            bbest = torch.argmax(bsc)
+            bbest_sc = _take(bsc, bbest)
+            bbest_lid = _take(ms.bank_lid, bbest)
+            b_nbr = (ms.bank_lid >= 0) & (ms.bank_lid >= lid - 8) \
+                & (ms.bank_lid <= lid - 1)
+            b_min = torch.amin(torch.where(b_nbr, bsc_all, 1.0))
+            hit_bank = (bbest_sc > 0.0) & b_nbr.any() & has_words \
+                & (bbest_sc >= b_min * cfg.loop.min_score_factor) & ~hit_ring
 
-        hit = hit_ring | hit_bank
-        cand = torch.where(hit_ring, best_lid, bbest_lid)
-        near_prev = torch.abs(cand - ms.cand_lid) <= 3
-        one = torch.ones_like(ms.streak)
-        streak = torch.where(hit & near_prev, ms.streak + 1,
-                             torch.where(hit, one, 0 * one))
-        confirmed = hit \
-            & (streak >= cfg.loop.covisibility_consistency_threshold) \
-            & (lid - ms.last_loop_lid >= COOLDOWN_KFS)
+            hit = hit_ring | hit_bank
+            cand = torch.where(hit_ring, best_lid, bbest_lid)
+            near_prev = torch.abs(cand - ms.cand_lid) <= 3
+            one = torch.ones_like(ms.streak)
+            streak = torch.where(hit & near_prev, ms.streak + 1,
+                                 torch.where(hit, one, 0 * one))
+            confirmed = hit \
+                & (streak >= cfg.loop.covisibility_consistency_threshold) \
+                & (lid - ms.last_loop_lid >= COOLDOWN_KFS)
 
-        # Bank insertion: the top-k over the keypoint word list (duplicate
-        # words aggregated by an [N, N] equality product), stable on ties
-        # like the reference's top_k.
-        w_ok = kp_ok & (words >= 0)
-        wkp = torch.where(w_ok, dv.word_weight[torch.clamp(words, min=0)], 0.0)
-        eq = (words[None, :] == words[:, None]) & w_ok[None, :]
-        agg = eq.to(torch.float32) @ wkp                # [N] per occurrence
-        first = (torch.argmax(eq.to(torch.uint8), dim=1)
-                 == torch.arange(words.shape[0], device=dev)) & w_ok
-        total = torch.clamp(wkp.sum(), min=1e-9)
-        cand_w = torch.where(first, agg / total, 0.0)
-        topw, top_kp = torch.sort(cand_w, descending=True, stable=True)
-        topw, top_kp = topw[:KW], top_kp[:KW]
-        topi = torch.where(topw > 0, words[top_kp], -1)
-        lsrc, lok = _compact(ok, LB)
-        lph = ph[lsrc]
-        brow = ms.bank_next % B
+            # Bank insertion: the top-k over the keypoint word list (duplicate
+            # words aggregated by an [N, N] equality product), stable on ties
+            # like the reference's top_k.
+            w_ok = kp_ok & (words >= 0)
+            wkp = torch.where(w_ok,
+                              dv.word_weight[torch.clamp(words, min=0)], 0.0)
+            eq = (words[None, :] == words[:, None]) & w_ok[None, :]
+            agg = eq.to(torch.float32) @ wkp            # [N] per occurrence
+            first = (torch.argmax(eq.to(torch.uint8), dim=1)
+                     == torch.arange(words.shape[0], device=dev)) & w_ok
+            total = torch.clamp(wkp.sum(), min=1e-9)
+            cand_w = torch.where(first, agg / total, 0.0)
+            topw, top_kp = torch.sort(cand_w, descending=True, stable=True)
+            topw, top_kp = topw[:KW], top_kp[:KW]
+            topi = torch.where(topw > 0, words[top_kp], -1)
+            lsrc, lok = _compact(ok, LB)
+            lph = ph[lsrc]
+            brow = ms.bank_next % B
 
-        def bank_row(arr, new):
-            return _put(arr, brow, torch.where(has_words, new.to(arr.dtype),
-                                               _take(arr, brow)))
+            def bank_row(arr, new):
+                return _put(arr, brow,
+                            torch.where(has_words, new.to(arr.dtype),
+                                        _take(arr, brow)))
 
-        ms = ms._replace(
-            kf_bow=_put(ms.kf_bow, row, bow),
-            bow_lid=_put(ms.bow_lid, row, _const(lid, torch.int64, dev)),
-            bow_next=_const(lid + 1, torch.int64, dev),
-            cand_lid=torch.where(hit, cand, neg1),
-            streak=streak,
-            bank_lid=_put(ms.bank_lid, brow,
-                          torch.where(has_words, _const(lid, torch.int64, dev),
-                                      _take(ms.bank_lid, brow))),
-            bank_next=ms.bank_next + has_words.to(torch.int64),
-            bank_bow_w=bank_row(ms.bank_bow_w, topw),
-            bank_bow_i=bank_row(ms.bank_bow_i, topi),
-            bank_R=bank_row(ms.bank_R, st.kf_R[row]),
-            bank_t=bank_row(ms.bank_t, st.kf_t[row]),
-            bank_pos=bank_row(ms.bank_pos, st.pt_pos[lph]),
-            bank_desc=bank_row(ms.bank_desc, st.pt_desc[lph]),
-            bank_angle=bank_row(ms.bank_angle, st.pt_angle[lph]),
-            bank_normal=bank_row(ms.bank_normal, st.pt_normal[lph]),
-            bank_mind=bank_row(ms.bank_mind, st.pt_mind[lph]),
-            bank_maxd=bank_row(ms.bank_maxd, st.pt_maxd[lph]),
-            bank_ok=bank_row(ms.bank_ok, lok & ok[lsrc]))
+            ms = ms._replace(
+                kf_bow=_put(ms.kf_bow, row, bow),
+                bow_lid=_put(ms.bow_lid, row, _const(lid, torch.int64, dev)),
+                bow_next=_const(lid + 1, torch.int64, dev),
+                cand_lid=torch.where(hit, cand, neg1),
+                streak=streak,
+                bank_lid=_put(ms.bank_lid, brow,
+                              torch.where(has_words,
+                                          _const(lid, torch.int64, dev),
+                                          _take(ms.bank_lid, brow))),
+                bank_next=ms.bank_next + has_words.to(torch.int64),
+                bank_bow_w=bank_row(ms.bank_bow_w, topw),
+                bank_bow_i=bank_row(ms.bank_bow_i, topi),
+                bank_R=bank_row(ms.bank_R, st.kf_R[row]),
+                bank_t=bank_row(ms.bank_t, st.kf_t[row]),
+                bank_pos=bank_row(ms.bank_pos, st.pt_pos[lph]),
+                bank_desc=bank_row(ms.bank_desc, st.pt_desc[lph]),
+                bank_angle=bank_row(ms.bank_angle, st.pt_angle[lph]),
+                bank_normal=bank_row(ms.bank_normal, st.pt_normal[lph]),
+                bank_mind=bank_row(ms.bank_mind, st.pt_mind[lph]),
+                bank_maxd=bank_row(ms.bank_maxd, st.pt_maxd[lph]),
+                bank_ok=bank_row(ms.bank_ok, lok & ok[lsrc]))
 
         # The host branch: one read per processed keyframe.
-        ring, bank = torch.stack([confirmed & hit_ring,
-                                  confirmed & hit_bank]).tolist()
+        with metrics.host_read("maint_branch"):
+            ring, bank = torch.stack([confirmed & hit_ring,
+                                      confirmed & hit_bank]).tolist()
         if ring:
-            st, ms = _close_loop(st, ms, lid, best, best_sc, cfg, lim,
-                                 _draw_fn(sampler, generator, ("loop", lid)))
+            metrics.count("close_attempts")
+            with metrics.span("close_loop"):
+                st, ms = _close_loop(st, ms, lid, best, best_sc, cfg, lim,
+                                     _draw_fn(sampler, generator,
+                                              ("loop", lid)))
         if bank:
-            st, ms = _close_loop_bank(st, ms, lid, bbest, bbest_sc, cfg, lim,
-                                      _draw_fn(sampler, generator,
-                                               ("bank", lid)))
+            metrics.count("close_attempts")
+            with metrics.span("close_loop_bank"):
+                st, ms = _close_loop_bank(st, ms, lid, bbest, bbest_sc, cfg,
+                                          lim, _draw_fn(sampler, generator,
+                                                        ("bank", lid)))
 
     # ---- relocalization when tracking is lost (one read per dispatch)
     need = (~st.track.ok) & (st.n_lost >= RELOC_AFTER_LOST) & (st.n_kf > 0)
-    if bool(need):
-        st, ms = _relocalize(st, ms, dv, cfg, lim, generator, sampler)
+    with metrics.host_read("reloc_need"):
+        lost = bool(need)
+    if lost:
+        metrics.count("reloc_attempts")
+        with metrics.span("relocalize"):
+            st, ms = _relocalize(st, ms, dv, cfg, lim, generator, sampler)
     return st, ms
 
 
@@ -571,14 +588,17 @@ def _close_loop(st: rt.RTState, ms: MaintState, lid: int, cand_row, score,
     src, has_d = _new_kf_points(cam, st.kf_obs[row_new])
     dst = st.pt_pos[ph_c[j]]           # candidate-era world positions
     valid = pair & has_d
-    res = procrustes.ransac_alignment(
-        src, dst, valid, idx=draw(valid), threshold=ALIGN_INLIER_M,
-        with_scale=False, final_threshold=ALIGN_FINAL_M)
+    with metrics.span("ransac_alignment"):
+        res = procrustes.ransac_alignment(
+            src, dst, valid, idx=draw(valid), threshold=ALIGN_INLIER_M,
+            with_scale=False, final_threshold=ALIGN_FINAL_M)
     # Accept on tight (annealed) inliers, or on an overwhelming wide
     # consensus (a rank-deficient set can give a non-finite solve: never).
     accepted = _accept(res, cfg)
     ms = _log_event(ms, lid, cand_lid, score, pair, res, accepted)
-    if not bool(accepted):
+    with metrics.host_read("close_accept"):
+        applied = bool(accepted)
+    if not applied:
         return st, ms
 
     # Corrected world->cam pose of the new keyframe: RANSAC solved
@@ -609,7 +629,8 @@ def _close_loop(st: rt.RTState, ms: MaintState, lid: int, cand_row, score,
         edge_weight=torch.cat([torch.ones(K - 1, device=dev),
                                torch.full((1,), LOOP_EDGE_WEIGHT,
                                           device=dev)]))
-    sol = pg.optimize_pose_graph(prob, cfg.optimizer, fix_scale=True)
+    with metrics.span("pose_graph"):
+        sol = pg.optimize_pose_graph(prob, cfg.optimizer, fix_scale=True)
 
     # Per-node finite guard: a degenerate system must not write NaN.
     node_ok = torch.isfinite(sol.R).flatten(1).all(1) \
@@ -654,7 +675,8 @@ def _close_loop(st: rt.RTState, ms: MaintState, lid: int, cand_row, score,
     pre = st.track
     row_last = (st.n_kf - 1) % K
     Ro2, to2 = _take(st.kf_R, row_last), _take(st.kf_t, row_last)
-    st = rt._windowed_ba(st, cfg, lim)
+    with metrics.span("local_ba"):
+        st = rt._windowed_ba(st, cfg, lim)
     B_R = Ro2.T @ _take(st.kf_R, row_last)
     B_t = Ro2.T @ (_take(st.kf_t, row_last) - to2)
     st = st._replace(track=st.track._replace(
@@ -691,12 +713,15 @@ def _close_loop_bank(st: rt.RTState, ms: MaintState, lid: int, bidx, score,
     src, has_d = _new_kf_points(cam, st.kf_obs[row_new])
     dst = bank_pos[j]                        # bank-era world positions
     valid = pair & has_d
-    res = procrustes.ransac_alignment(
-        src, dst, valid, idx=draw(valid), threshold=ALIGN_INLIER_M,
-        with_scale=False, final_threshold=ALIGN_FINAL_M)
+    with metrics.span("ransac_alignment"):
+        res = procrustes.ransac_alignment(
+            src, dst, valid, idx=draw(valid), threshold=ALIGN_INLIER_M,
+            with_scale=False, final_threshold=ALIGN_FINAL_M)
     accepted = _accept(res, cfg)
     ms = _log_event(ms, lid, cand_lid, score, pair, res, accepted)
-    if not bool(accepted):
+    with metrics.host_read("close_accept"):
+        applied = bool(accepted)
+    if not applied:
         return st, ms
 
     R_corr = so3_mod.orthonormalize(res.R.T)
@@ -716,7 +741,8 @@ def _close_loop_bank(st: rt.RTState, ms: MaintState, lid: int, bidx, score,
         valid=valid_nodes, edge_i=ei, edge_j=ej,
         edge_s=torch.ones(K - 1, device=dev), edge_R=R_m, edge_t=t_m,
         edge_valid=e_ok, edge_weight=torch.ones(K - 1, device=dev))
-    sol = pg.optimize_pose_graph(prob, cfg.optimizer, fix_scale=True)
+    with metrics.span("pose_graph"):
+        sol = pg.optimize_pose_graph(prob, cfg.optimizer, fix_scale=True)
 
     node_ok = torch.isfinite(sol.R).flatten(1).all(1) \
         & torch.isfinite(sol.t).all(1)
@@ -808,9 +834,12 @@ class Maintainer:
         Returns (st, ms)."""
         lo, hi = backlog(n_kf, bow_next)
         self._gen.manual_seed(int(seed))
-        return maintenance_step(st, ms, lo, hi, self._dev, self.cfg,
-                                self.lim, generator=self._gen,
-                                sampler=sampler)
+        metrics.count("maint_dispatches")
+        metrics.count("maint_keyframes", hi - lo)
+        with metrics.span("maintenance"):
+            return maintenance_step(st, ms, lo, hi, self._dev, self.cfg,
+                                    self.lim, generator=self._gen,
+                                    sampler=sampler)
 
     def report(self, ms: MaintState) -> dict:
         """Session-end readback of the maintenance outcome. ``loop_events``

@@ -38,6 +38,7 @@ from ..geometry import so3
 from ..geometry.se3 import SE3
 from ..ops import brief, initializer_ops, matching, triangulation
 from ..optim import local_ba
+from ..utils import metrics
 from ..utils.device import resolve_device
 from . import dynamic as dynamic_mod
 from . import frame as frame_mod
@@ -279,7 +280,9 @@ def _mono_init(st: RTState, fd, cfg: SystemConfig, lim: RTLimits, *,
                           mr_valid=feats.valid,
                           mr_ok=feats.valid.sum() > 100)
 
-    if not bool(st.mr_ok):                 # host read (before the map only)
+    with metrics.host_read("mono_ref"):    # before the map only
+        held = bool(st.mr_ok)
+    if not held:
         return stash(st), None, False
     s = st
     sd_r = brief.to_signed(brief.unpack_bits(s.mr_desc))
@@ -301,7 +304,9 @@ def _mono_init(st: RTState, fd, cfg: SystemConfig, lim: RTLimits, *,
     rank = torch.cumsum(good.to(torch.int64), 0) - 1
     take = good & (rank < S)
     attempt = InitAttempt(ok, rec.used_homography, good.sum(), take.sum())
-    if not bool(ok):                       # host read (before the map only)
+    with metrics.host_read("mono_init_ok"):  # before the map only
+        built = bool(ok)
+    if not built:
         return stash(s), attempt, False
 
     z = torch.where(good, rec.points[:, 2],
@@ -506,7 +511,8 @@ def _create_keyframe(st: RTState, fd, spawn_ok, pose: SE3, local_ids,
         frames_since_kf=torch.zeros_like(st.frames_since_kf),
         peak_inliers=torch.zeros_like(st.peak_inliers),
         n_assoc=st.n_assoc + assoc.sum())
-    return _windowed_ba(st, cfg, lim)
+    with metrics.span("local_ba"):
+        return _windowed_ba(st, cfg, lim)
 
 
 def _windowed_ba(st: RTState, cfg: SystemConfig, lim: RTLimits) -> RTState:
@@ -653,64 +659,76 @@ def _rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
     mono = cfg.sensor == "monocular"
 
     g = gray.to(f32)
-    if cfg.sensor == "stereo":
-        fd = frame_mod.process_stereo(g, depth.to(f32), cam, cfg.orb,
-                                      n_features=st.budget,
-                                      dynamic_mask=st.dyn.sticky > 0,
-                                      area_mode=st.dyn.area_flag)
-    else:
-        if depth.dtype.is_floating_point:
-            d = depth.to(f32)
+    with metrics.span("frontend"):
+        if cfg.sensor == "stereo":
+            fd = frame_mod.process_stereo(g, depth.to(f32), cam, cfg.orb,
+                                          n_features=st.budget,
+                                          dynamic_mask=st.dyn.sticky > 0,
+                                          area_mode=st.dyn.area_flag)
         else:
-            d = depth.to(f32) / cam.depth_map_factor
-        fd = frame_mod.process_rgbd(g, d, cam, cfg.orb, n_features=st.budget,
-                                    dynamic_mask=st.dyn.sticky > 0,
-                                    area_mode=st.dyn.area_flag)
-    fd, spawn_ok, dyn2, _info = dynamic_mod.dynamic_step(
-        fd, g, st.dyn, boxes, cfg, generator=generator, idx=ransac_idx)
+            if depth.dtype.is_floating_point:
+                d = depth.to(f32)
+            else:
+                d = depth.to(f32) / cam.depth_map_factor
+            fd = frame_mod.process_rgbd(g, d, cam, cfg.orb,
+                                        n_features=st.budget,
+                                        dynamic_mask=st.dyn.sticky > 0,
+                                        area_mode=st.dyn.area_flag)
+    with metrics.span("dynamic_frontend"):
+        fd, spawn_ok, dyn2, _info = dynamic_mod.dynamic_step(
+            fd, g, st.dyn, boxes, cfg, generator=generator, idx=ransac_idx)
 
     n_new = 0
     attempt = None
-    if mono and (int(st.n_kf) if n_kf is None else n_kf) == 0:
+    if mono and n_kf is None:
+        with metrics.host_read("mono_n_kf"):
+            n_kf = int(st.n_kf)
+    if mono and n_kf == 0:
         # Two-view initialisation replaces the depth bootstrap.
-        st, attempt, built = _mono_init(st, fd, cfg, lim,
-                                        generator=generator,
-                                        init_idx=init_idx)
+        with metrics.span("mono_init"):
+            st, attempt, built = _mono_init(st, fd, cfg, lim,
+                                            generator=generator,
+                                            init_idx=init_idx)
         n_new = 2 if built else 0
 
     # Tracking local map = the last `local_window` keyframe chunks + the
     # loop-closure reuse window + the bank re-seed window.
-    Lw = lim.local_window * S
-    k_new = torch.clamp(st.n_kf - 1, min=0)
-    lstart = torch.clamp(k_new - lim.local_window + 1, min=0) * S
-    temporal_ids = lstart + torch.arange(Lw, device=dev)
-    temporal_valid = temporal_ids < st.n_kf * S
+    with metrics.span("arena_unpack"):
+        Lw = lim.local_window * S
+        k_new = torch.clamp(st.n_kf - 1, min=0)
+        lstart = torch.clamp(k_new - lim.local_window + 1, min=0) * S
+        temporal_ids = lstart + torch.arange(Lw, device=dev)
+        temporal_valid = temporal_ids < st.n_kf * S
 
-    Rw = lim.reuse_chunks * S
-    reuse_ids = torch.clamp(st.reuse_lid, min=0) * S + torch.arange(Rw, device=dev)
-    reuse_on = (st.reuse_lid >= 0) & (st.reuse_ttl > 0)
-    reuse_valid = reuse_on & (reuse_ids < st.n_kf * S) \
-        & pid_alive(reuse_ids, st.kf_lid, lim)
+        Rw = lim.reuse_chunks * S
+        reuse_ids = torch.clamp(st.reuse_lid, min=0) * S \
+            + torch.arange(Rw, device=dev)
+        reuse_on = (st.reuse_lid >= 0) & (st.reuse_ttl > 0)
+        reuse_valid = reuse_on & (reuse_ids < st.n_kf * S) \
+            & pid_alive(reuse_ids, st.kf_lid, lim)
 
-    seed_ids = SEED_BASE + torch.arange(lim.seed_slots, device=dev)
-    seed_valid = (st.seed_ttl > 0).expand(lim.seed_slots)
+        seed_ids = SEED_BASE + torch.arange(lim.seed_slots, device=dev)
+        seed_valid = (st.seed_ttl > 0).expand(lim.seed_slots)
 
-    local_ids = torch.cat([temporal_ids, reuse_ids, seed_ids])
-    local_alive = torch.cat([temporal_valid, reuse_valid, seed_valid])
-    local_phys = pid_phys(local_ids, lim)
+        local_ids = torch.cat([temporal_ids, reuse_ids, seed_ids])
+        local_alive = torch.cat([temporal_valid, reuse_valid, seed_valid])
+        local_phys = pid_phys(local_ids, lim)
 
-    pt_sd = brief.to_signed(brief.unpack_bits(st.pt_desc))
-    arena = (st.pt_pos, pt_sd, st.pt_valid, st.pt_angle, st.pt_normal,
-             st.pt_mind, st.pt_maxd)
-    gate = 1.0 + st.n_lost.to(f32)
+        pt_sd = brief.to_signed(brief.unpack_bits(st.pt_desc))
+        arena = (st.pt_pos, pt_sd, st.pt_valid, st.pt_angle, st.pt_normal,
+                 st.pt_mind, st.pt_maxd)
+        gate = 1.0 + st.n_lost.to(f32)
 
-    # fused_step indexes the arena with PHYSICAL rows.
-    pids_log = st.track.pids
-    alive_in = pid_alive(pids_log, st.kf_lid, lim, seed_ok=st.seed_ttl > 0)
-    track_in = st.track._replace(
-        pids=torch.where(alive_in, pid_phys(pids_log, lim),
-                         torch.full_like(pids_log, -1)))
-    out = fused_step(fd, track_in, local_phys, local_alive, arena, gate, cfg)
+        # fused_step indexes the arena with PHYSICAL rows.
+        pids_log = st.track.pids
+        alive_in = pid_alive(pids_log, st.kf_lid, lim,
+                             seed_ok=st.seed_ttl > 0)
+        track_in = st.track._replace(
+            pids=torch.where(alive_in, pid_phys(pids_log, lim),
+                             torch.full_like(pids_log, -1)))
+    with metrics.span("tracking"):
+        out = fused_step(fd, track_in, local_phys, local_alive, arena, gate,
+                         cfg)
 
     # Physical -> logical through the chunk's current tenant.
     phys = out.state.pids
@@ -764,10 +782,12 @@ def _rt_step(gray, depth, boxes, st: RTState, cfg: SystemConfig,
                      fr_depth=fd.depth, fr_valid=fd.feats.valid,
                      reuse_ttl=torch.clamp(st.reuse_ttl - 1, min=0),
                      seed_ttl=torch.clamp(st.seed_ttl - 1, min=0))
-    made_kf = bool(need_kf)                # the frame's one host sync
+    with metrics.host_read("kf_decision"):
+        made_kf = bool(need_kf)            # the frame's one host sync
     if made_kf:
-        st = _create_keyframe(st, fd, spawn_ok, pose, local_ids,
-                              local_alive, cfg, lim)
+        with metrics.span("keyframe_ba"):
+            st = _create_keyframe(st, fd, spawn_ok, pose, local_ids,
+                                  local_alive, cfg, lim)
 
     # ---- COEB adaptive feature budget.
     if t_cfg.adaptive_budget:
@@ -907,26 +927,30 @@ class RealtimeSlam:
         self._step(self._upload(gray), self._zero_depth, stamp, boxes)
 
     def _step(self, g, d, stamp, boxes):
-        if self.detector is not None \
-                and len(self.stamps) % self.detect_every == 0:
-            self._det_boxes = self.detector.detect_device(g)
-        if boxes is None:
-            boxes = self._det_boxes
-        self._gen.manual_seed(self._seed)
-        self.state, n_new, attempt = _rt_step(
-            g, d, self._boxes(boxes), self.state, self.cfg, self.lim,
-            generator=self._gen, n_kf=self._n_kf)
-        if attempt is not None:
-            self.init_attempts.append((len(self.stamps), attempt))
-        self._n_kf += n_new
-        self.stamps.append(stamp)
-        self._seed += 1
-        if self.maint is not None \
-                and len(self.stamps) % self.maintain_every == 0:
-            self.state, self.mstate = self.maint.step(
-                self.state, self.mstate, self._seed, n_kf=self._n_kf,
-                bow_next=self._bow_next)
-            self._bow_next = self._n_kf     # a dispatch processes them all
+        metrics.request(len(self.stamps))
+        with metrics.span("step"):
+            if self.detector is not None \
+                    and len(self.stamps) % self.detect_every == 0:
+                with metrics.span("detect"):
+                    self._det_boxes = self.detector.detect_device(g)
+            if boxes is None:
+                boxes = self._det_boxes
+            self._gen.manual_seed(self._seed)
+            self.state, n_new, attempt = _rt_step(
+                g, d, self._boxes(boxes), self.state, self.cfg, self.lim,
+                generator=self._gen, n_kf=self._n_kf)
+            if attempt is not None:
+                self.init_attempts.append((len(self.stamps), attempt))
+            self._n_kf += n_new
+            metrics.count("keyframes", n_new)
+            self.stamps.append(stamp)
+            self._seed += 1
+            if self.maint is not None \
+                    and len(self.stamps) % self.maintain_every == 0:
+                self.state, self.mstate = self.maint.step(
+                    self.state, self.mstate, self._seed, n_kf=self._n_kf,
+                    bow_next=self._bow_next)
+                self._bow_next = self._n_kf  # a dispatch processes them all
 
     def block(self) -> None:
         """Wait for all queued device work."""

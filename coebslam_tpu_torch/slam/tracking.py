@@ -39,6 +39,7 @@ from ..geometry import se3, so3
 from ..geometry.se3 import SE3
 from ..ops import fundamental, initializer_ops, matching
 from ..optim import pose_gn
+from ..utils import metrics
 from ..utils.device import resolve_device
 from . import dynamic as dynamic_mod
 from . import frame as frame_mod
@@ -66,49 +67,56 @@ def track_step(frame: FrameData, pose_pred: SE3, pts_w, pt_signed_desc,
                radius, cfg: SystemConfig) -> TrackStepResult:
     """Project-match-optimize against a candidate point set [M, ...];
     ``radius`` is the search radius in px at level 0 (0-d tensor)."""
-    cam = cfg.camera
-    pc = se3.transform_points(pose_pred, pts_w)
-    uvr = cam_ops.project_stereo(cam, pc)
-    vis = pt_valid & cam_ops.in_frustum(cam, pc, margin=radius)
+    with metrics.span("hamming"):
+        cam = cfg.camera
+        pc = se3.transform_points(pose_pred, pts_w)
+        uvr = cam_ops.project_stereo(cam, pc)
+        vis = pt_valid & cam_ops.in_frustum(cam, pc, margin=radius)
 
-    # Scale-invariance band and viewing angle within 60 deg of the normal.
-    center = -torch.einsum("ji,j->i", pose_pred.R, pose_pred.t)
-    vec = pts_w - center
-    dist = torch.linalg.norm(vec, dim=-1)
-    dist_ok = (dist > 0.8 * pt_min_dist) & (dist < 1.2 * pt_max_dist)
-    view_cos = torch.einsum(
-        "mi,mi->m", vec / torch.clamp(dist, min=1e-9)[:, None], pt_normal)
-    vis = vis & dist_ok & (view_cos > 0.5)
+        # Scale-invariance band and viewing angle within 60 deg of the
+        # normal.
+        center = -torch.einsum("ji,j->i", pose_pred.R, pose_pred.t)
+        vec = pts_w - center
+        dist = torch.linalg.norm(vec, dim=-1)
+        dist_ok = (dist > 0.8 * pt_min_dist) & (dist < 1.2 * pt_max_dist)
+        view_cos = torch.einsum(
+            "mi,mi->m", vec / torch.clamp(dist, min=1e-9)[:, None], pt_normal)
+        vis = vis & dist_ok & (view_cos > 0.5)
 
-    feats = frame.feats
-    d = matching.hamming_matrix(feats.signed_desc(), pt_signed_desc)
-    sf = torch.full((), cfg.orb.scale_factor, dtype=torch.float32,
-                    device=pts_w.device)
-    scale = torch.pow(sf, feats.level.to(torch.float32))
-    dx = torch.abs(feats.uv[:, None, 0] - uvr[None, :, 0])
-    dy = torch.abs(feats.uv[:, None, 1] - uvr[None, :, 1])
-    r = radius * scale[:, None]
-    d = d + torch.where((dx <= r) & (dy <= r), 0.0, matching.BIG)
+        feats = frame.feats
+        d = matching.hamming_matrix(feats.signed_desc(), pt_signed_desc)
+        sf = torch.full((), cfg.orb.scale_factor, dtype=torch.float32,
+                        device=pts_w.device)
+        scale = torch.pow(sf, feats.level.to(torch.float32))
+        dx = torch.abs(feats.uv[:, None, 0] - uvr[None, :, 0])
+        dy = torch.abs(feats.uv[:, None, 1] - uvr[None, :, 1])
+        r = radius * scale[:, None]
+        d = d + torch.where((dx <= r) & (dy <= r), 0.0, matching.BIG)
 
-    # Octave compatibility: keypoint level within +-1 of the predicted one.
-    log_sf = torch.log(sf)
-    pred_level = torch.ceil(
-        torch.log(torch.clamp(pt_max_dist, min=1e-6)
-                  / torch.clamp(dist, min=1e-6)) / log_sf)
-    pred_level = torch.clamp(pred_level, 0, cfg.orb.n_levels - 1)
-    level_diff = feats.level[:, None].to(torch.float32) - pred_level[None, :]
-    d = d + torch.where(torch.abs(level_diff) <= 1.0, 0.0, matching.BIG)
+        # Octave compatibility: keypoint level within +-1 of the predicted
+        # one.
+        log_sf = torch.log(sf)
+        pred_level = torch.ceil(
+            torch.log(torch.clamp(pt_max_dist, min=1e-6)
+                      / torch.clamp(dist, min=1e-6)) / log_sf)
+        pred_level = torch.clamp(pred_level, 0, cfg.orb.n_levels - 1)
+        level_diff = (feats.level[:, None].to(torch.float32)
+                      - pred_level[None, :])
+        d = d + torch.where(torch.abs(level_diff) <= 1.0, 0.0, matching.BIG)
 
-    res = matching.match(d, max_distance=cfg.matcher.th_high,
-                         ratio=cfg.matcher.nn_ratio_tracking, mutual=True,
-                         row_valid=feats.valid, col_valid=vis)
-    if cfg.matcher.check_orientation:
-        res = matching.rotation_consistency(feats.angle, pt_angle, res,
-                                            cfg.matcher.histo_length)
+        res = matching.match(d, max_distance=cfg.matcher.th_high,
+                             ratio=cfg.matcher.nn_ratio_tracking,
+                             mutual=True, row_valid=feats.valid,
+                             col_valid=vis)
+        if cfg.matcher.check_orientation:
+            res = matching.rotation_consistency(feats.angle, pt_angle, res,
+                                                cfg.matcher.histo_length)
 
-    X = pts_w[torch.clamp(res.idx, min=0)]
-    opt = pose_gn.optimize_pose(pose_pred, X, frame.obs, frame.inv_sigma2,
-                                res.valid, cam, cfg.optimizer)
+    with metrics.span("pose_gn"):
+        X = pts_w[torch.clamp(res.idx, min=0)]
+        opt = pose_gn.optimize_pose(pose_pred, X, frame.obs,
+                                    frame.inv_sigma2, res.valid, cam,
+                                    cfg.optimizer)
     idx = torch.where(opt.inliers, res.idx, torch.full_like(res.idx, -1))
     return TrackStepResult(pose=opt.pose, point_idx=idx,
                            inliers=opt.inliers, n_inliers=opt.n_inliers,
@@ -215,8 +223,10 @@ def fused_step(fd: FrameData, state: DevTrackState, local_ids, local_valid,
     for k in range(4):
         ids, idv = stage_ids[k]
         pose_in = pose_pred if k == 0 else pose_last if k == 1 else pose_cur
-        res = track_step(fd, pose_in, pos[ids], sd[ids], idv & pv[ids],
-                         pa[ids], pn[ids], pmin[ids], pmax[ids], radii[k], cfg)
+        with metrics.span(f"track_stage{k}"):
+            res = track_step(fd, pose_in, pos[ids], sd[ids], idv & pv[ids],
+                             pa[ids], pn[ids], pmin[ids], pmax[ids],
+                             radii[k], cfg)
         if k == 1:
             adopt = (n_cur < 30) & (res.n_inliers > n_cur)
             n_cur = torch.where(adopt, res.n_inliers, n_cur)
@@ -230,8 +240,8 @@ def fused_step(fd: FrameData, state: DevTrackState, local_ids, local_valid,
         ys.append(res)
 
     y0, y1, y2a, y2 = ys
-    res1 = _select_result((y0.n_inliers < 30) & (y1.n_inliers > y0.n_inliers),
-                          y1, y0)
+    retry = (y0.n_inliers < 30) & (y1.n_inliers > y0.n_inliers)
+    res1 = _select_result(retry, y1, y0)
     res2a = y2a
     final = _select_result(y2.n_inliers >= y2a.n_inliers, y2, y2a)
 
@@ -265,6 +275,13 @@ def fused_step(fd: FrameData, state: DevTrackState, local_ids, local_valid,
     new_state = DevTrackState(R=new_pose.R, t=new_pose.t, vR=new_vR,
                               vt=new_vt, has_vel=vel_ok, ok=ok,
                               pids=new_pids)
+    if metrics.enabled():
+        row = {"keypoints": fd.feats.valid.sum()}
+        for k, y in enumerate(ys):
+            row[f"matches{k}"] = y.n_matches
+            row[f"inliers{k}"] = y.n_inliers
+        metrics.count_device("tracking", {**row, "retry_adopted": retry,
+                                          "tracked": ok})
     vec = torch.cat([
         new_pose.R.reshape(9), new_pose.t,
         torch.stack([ok.to(f32),

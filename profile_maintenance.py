@@ -15,9 +15,10 @@ Run from the repository root:
    ms and device span, the card not drained); the state before the first
    dispatch that applies a closure is kept.
 3. That dispatch replayed warm ``REPLAYS`` times (wall ms), then once under
-   ``torch.profiler`` with ranges around its stages (vocabulary descent,
-   RANSAC alignment, pose graph, junction BA): the stages' host and device
-   ms, the kernel count, the device's busy share and the top host ops.
+   ``torch.profiler`` with the port's recorder on (``utils.metrics``): the
+   host and device ms of its stages (the spans of the vocabulary descent,
+   RANSAC alignment, pose graph and junction BA), the kernel count, the
+   device's busy share and the top host ops.
 
 The summary is printed, and written as JSON to ``--json`` when given.
 Without CUDA the script exits with code 2.
@@ -31,10 +32,11 @@ import time
 from chip_smoke import (CIRCUIT_LIMITS, card, circuit_config,
                         dispatch_line, dispatch_summary, loop_scene,
                         time_dispatches)
-from profile_torch_realtime import _annotate
+from profile_torch_realtime import span_table
 
-STAGES = ("maint.descend", "maint.ransac", "maint.pose_graph",
-          "maint.junction_ba")
+# The printed stages and the names of the port's spans they sum.
+STAGES = {"maint.descend": "descend", "maint.ransac": "ransac_alignment",
+          "maint.pose_graph": "pose_graph", "maint.junction_ba": "local_ba"}
 REPLAYS = 3
 
 
@@ -97,10 +99,8 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from coebslam_tpu_torch import config
-    from coebslam_tpu_torch.ops import procrustes
-    from coebslam_tpu_torch.optim import pose_graph
     from coebslam_tpu_torch.slam import realtime, vocabulary
-    from coebslam_tpu_torch.utils import synthetic
+    from coebslam_tpu_torch.utils import metrics, synthetic
 
     card_line = card()
     firsts = first_calls(torch)
@@ -134,23 +134,27 @@ def main():
         st, ms, seed, kw, at = kept[0]
         replays = [_ms(torch, lambda: step(st, ms, seed, **kw))
                    for _ in range(REPLAYS)]
-        _annotate(torch, vocabulary, "descend", STAGES[0])
-        _annotate(torch, procrustes, "ransac_alignment", STAGES[1])
-        _annotate(torch, pose_graph, "optimize_pose_graph", STAGES[2])
-        _annotate(torch, realtime, "_windowed_ba", STAGES[3])
         act = [torch.profiler.ProfilerActivity.CPU,
                torch.profiler.ProfilerActivity.CUDA]
+        metrics.tracing(True)
         with torch.profiler.profile(activities=act) as prof:
+            lo_ns = time.time_ns()
             traced_ms = _ms(torch, lambda: step(st, ms, seed, **kw))
+            hi_ns = time.time_ns()
+        metrics.tracing(False)
+        spans = span_table(prof, metrics.drain(), lo_ns, hi_ns)
+        stage = {}
+        for k, name in STAGES.items():
+            for path, v in spans.items():
+                if path.rsplit("/", 1)[-1] == name:
+                    a = stage.setdefault(k, dict.fromkeys(v, 0))
+                    for f in v:
+                        a[f] += v[f]
         cpu = torch.autograd.DeviceType.CPU
         cuda = torch.autograd.DeviceType.CUDA
-        kernels = [e for e in prof.events()
-                   if e.device_type == cuda and e.name not in STAGES]
+        kernels = [e for e in prof.events() if e.device_type == cuda]
         dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-        avg = prof.key_averages()
-        stage = {e.key: e for e in avg
-                 if e.key in STAGES and e.device_type == cpu}
-        ops = [e for e in avg if e.key not in STAGES and e.device_type == cpu]
+        ops = [e for e in prof.key_averages() if e.device_type == cpu]
         top_cpu = sorted(ops, key=lambda e: e.self_cpu_time_total,
                          reverse=True)[:12]
         summary.update({
@@ -160,10 +164,10 @@ def main():
             "traced_ms": traced_ms, "device_ms": dev_ms,
             "device_busy_share": dev_ms / traced_ms,
             "kernels": len(kernels),
-            "stages": {k: {"calls": stage[k].count,
-                           "host_ms": stage[k].cpu_time_total / 1e3,
-                           "device_ms": stage[k].device_time_total / 1e3}
-                       for k in STAGES if k in stage},
+            "stages": {k: {"calls": v["calls"], "host_ms": v["host_ms"],
+                           "device_ms": v["device_ms"]}
+                       for k, v in stage.items()},
+            "spans": spans,
             "top_host_ops": [(e.key, e.count, e.self_cpu_time_total / 1e3)
                              for e in top_cpu]})
 
