@@ -5,9 +5,15 @@ reprojection edges, Huber kernel, 4 rounds x 10 iterations with chi-square
 gating between rounds and the robust kernel dropped from round 3. The 6x6
 normal systems go through ``torch.linalg.solve_ex``, which neither raises
 on a singular system nor synchronises with the host.
+
+On CPU tensors the schedule runs eagerly. On CUDA tensors its ~6,800 small
+kernels are captured once as one CUDA graph and replayed on every later
+call with the same shapes, dtypes and configs (``_Graph``): the same
+kernels in the same order, so the result is bit-equal to the eager run's.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -15,6 +21,11 @@ import torch
 from ..config import CameraConfig, OptimizerConfig
 from ..geometry import se3
 from ..geometry.se3 import SE3
+from ..utils import metrics
+
+#: Eager runs before a capture (they load the kernels and make the cuBLAS
+#: and cuSOLVER handles outside the graph).
+WARMUP_RUNS = 3
 
 
 class PoseOptResult(NamedTuple):
@@ -64,12 +75,74 @@ def _residual_jacobian(pose: SE3, points_w, obs, cam: CameraConfig,
 
 def optimize_pose(pose0: SE3, points_w, obs, inv_sigma2, valid,
                   cam: CameraConfig, cfg: OptimizerConfig) -> PoseOptResult:
-    """Run the 4x10 robust GN schedule.
+    """Run the 4x10 robust GN schedule: eagerly on CPU tensors, as a
+    replay of the captured schedule on CUDA tensors.
 
     Args:
       points_w: [N, 3] map points; obs: [N, 3] (u, v, u_right), u_right < 0
       for mono; inv_sigma2: [N] information; valid: [N] bool.
     """
+    inputs = (pose0.R, pose0.t, points_w, obs, inv_sigma2, valid)
+    if obs.device.type != "cuda":
+        return _solve(*inputs, cam, cfg)
+    key = (obs.device, tuple(x.shape for x in inputs),
+           tuple(x.dtype for x in inputs), cam, cfg)
+    with _lock:
+        graph = _graphs.get(key)
+        if graph is None:
+            graph = _graphs[key] = _Graph(inputs, cam, cfg)
+        return graph.replay(inputs)
+
+
+_graphs: dict = {}          # (device, shapes, dtypes, cam, cfg) -> _Graph
+_lock = threading.Lock()
+_pool = None                # the memory pool all graphs of the process share
+
+
+class _Graph:
+    """``_solve`` captured once as a CUDA graph over static input buffers
+    (copies of the first call's inputs) and replayed: ``replay`` copies a
+    call's inputs into them, replays, and returns clones of the static
+    outputs, which the next replay overwrites."""
+
+    def __init__(self, inputs, cam: CameraConfig, cfg: OptimizerConfig):
+        global _pool
+        if _pool is None:
+            _pool = torch.cuda.graph_pool_handle()
+        dev = inputs[0].device
+        with torch.cuda.device(dev):
+            self.inputs = [x.clone() for x in inputs]
+            for _ in range(WARMUP_RUNS):
+                _solve(*self.inputs, cam, cfg)
+            # cuBLAS keeps a workspace per stream (32 MiB on an H100).
+            # Cleared before and after the capture, the capture stream's
+            # is made inside the graph's pool, and the current stream's is
+            # made again where it was, so no second one stays allocated.
+            torch._C._cuda_clearCublasWorkspaces()
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(self.graph, pool=_pool,
+                                      stream=torch.cuda.Stream()):
+                    self.out = _solve(*self.inputs, cam, cfg)
+            finally:
+                torch._C._cuda_clearCublasWorkspaces()
+        metrics.count("pose_gn_captures")
+
+    def replay(self, inputs) -> PoseOptResult:
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
+        self.graph.replay()                 # on its own device
+        o = self.out
+        metrics.count("pose_gn_replays")
+        return PoseOptResult(pose=SE3(o.pose.R.clone(), o.pose.t.clone()),
+                             inliers=o.inliers.clone(),
+                             n_inliers=o.n_inliers.clone(),
+                             chi2=o.chi2.clone())
+
+
+def _solve(R0, t0, points_w, obs, inv_sigma2, valid, cam: CameraConfig,
+           cfg: OptimizerConfig) -> PoseOptResult:
+    """The schedule, eagerly: what runs on the CPU and what is captured."""
     is_stereo = obs[..., 2] >= 0.0
     delta_huber = torch.where(
         is_stereo,
@@ -81,7 +154,7 @@ def optimize_pose(pose0: SE3, points_w, obs, inv_sigma2, valid,
     def chi2_of(e):
         return torch.sum(e * e, dim=-1) * inv_sigma2
 
-    pose, active = pose0, valid
+    pose, active = SE3(R0, t0), valid
     c2 = None
     for rnd in range(cfg.pose_rounds):
         use_huber = rnd < 2                    # dropped from round 3

@@ -14,12 +14,14 @@ session (``benchmark/slambench/program.py``). It prints the per-layer
 metrics, the five that read the program's spans and counters among them;
 then per program span the calls, host ms, device ms and kernels per frame;
 the reads to the host and their wait per site per frame; the host
-counters, the mean of each device counter per frame; and every idle gap of
-the card by name. The second form measures what the recorder costs:
-untraced runs of the cell in turns with the recorder off and on, ROUNDS of
-each (a pair shares its seed), each printed with its end-to-end metrics
-and host ms per frame. ``--json`` also writes all of it. Without CUDA it
-exits with code 3.
+counters, per frame in the window (``keyframes``, ``maint_dispatches``,
+``pose_gn_replays``, ``pose_gn_captures``, ...) and per session before it
+(the warm-up's frames, ``BeforeWindow``); the mean of each device counter
+per frame; and every idle gap of the card by name. The second form
+measures what the recorder costs: untraced runs of the cell in turns with
+the recorder off and on, ROUNDS of each (a pair shares its seed), each
+printed with its end-to-end metrics and host ms per frame. ``--json``
+also writes all of it. Without CUDA it exits with code 3.
 """
 import argparse
 import json
@@ -33,11 +35,41 @@ sys.path[:0] = [os.path.join(ROOT, "benchmark"), ROOT]
 
 import run as bench_run  # noqa: E402
 
+BEFORE = ".before_window"
+
+
+class BeforeWindow:
+    """In a run's ``opts``: unpickled in a session's process, it makes the
+    program's window also keep, as ``<counter>.before_window``, the host
+    counters of the frames whose ``step`` ended before the window (the
+    warm-up's)."""
+
+    def __reduce__(self):
+        return (_install_before_window, ())
+
+
+def _install_before_window():
+    from slambench import program
+    plain = program.window
+
+    def window(rec, lo_ns, hi_ns):
+        out = plain(rec, lo_ns, hi_ns)
+        before = {s["request"] for s in rec["spans"]
+                  if s["path"] == "step" and s["t1"] <= lo_ns}
+        for n, per in rec["counters"].items():
+            out["counters"][n + BEFORE] = sum(v for r, v in per.items()
+                                              if r in before)
+        return out
+
+    program.window = window
+    return BeforeWindow()
+
 
 def _traced(cell, seed, seconds, log):
     from slambench import program
     keep = []
-    res, code = program.run(cell, seed, seconds, 1, T_START, log=log,
+    res, code = program.run(cell, seed, seconds, 1, T_START,
+                            opts={"before_window": BeforeWindow()}, log=log,
                             keep=keep)
     if res is None:
         return None, code
@@ -71,7 +103,13 @@ def _traced(cell, seed, seconds, log):
     print(f"reads per frame {out['reads_per_frame']} (sum "
           f"{sum(out['reads_per_frame'].values()):.4f}), wait ms per frame "
           f"{ {k: round(v, 3) for k, v in out['read_ms_per_frame'].items()} }")
-    print(f"counters {prog['counters']}")
+    sessions = int(cell["traffic"]["sessions"])
+    print("host counters per frame in the window; per session before it:")
+    for k, v in sorted(prog["counters"].items()):
+        if k.endswith(BEFORE):
+            print(f"  {v / sessions:9.4f}  {k}")
+        else:
+            print(f"  {v / steps:9.4f}  {k}")
     print(f"device counters, mean per frame {dev}")
     print("idle gaps (s):")
     for k, v in sorted(run.idle.items(), key=lambda x: -x[1]):
