@@ -19,27 +19,39 @@ from the frames the benchmark made:
   1 m, in mm.
 - ``spawn_gap_mm`` (``check_keyframes``): on sampled keyframes of the
   window, the largest distance between a point the keyframe spawned, as
-  the windowed BA receives it, and the reference's unprojection of the
-  same keypoint at its own depth through the keyframe's pose, in float64.
+  the windowed BA receives it, and the reference's position of it in
+  float64: RGB-D and stereo unproject the same keypoint at the
+  reference's own depth through the keyframe's pose; monocular
+  triangulates the reference's keypoint against the previous keyframe's
+  keypoint that names the same new point (``reference.triangulate``).
 - ``spawn_mismatch_pct``: of those spawned points, in %, the ones where the
-  reference finds no valid keypoint or no depth under the close-point
-  threshold, or whose chunk slot is not valid, and the chunk's valid slots
-  that no keypoint names.
+  reference finds no valid keypoint, or no depth under the close-point
+  threshold (RGB-D, stereo), or no partner in the previous keyframe or a
+  failed gate of the triangulation (monocular), or whose chunk slot is
+  not valid, and the chunk's valid slots that no keypoint names.
 - ``ba_pose_gap_mm``: on the same keyframes, the windowed BA's free
   keyframe poses against the reference's BA (float64) of the window the
   timed path built, the largest pose gap as ``pose_gap_mm`` takes it.
 - ``missing_outputs``: sampled frames that lack one of these outputs.
 
+A monocular frame has no depth: its observations carry u_right -1, as
+``track_mono`` hands the port a zero depth image. A monocular map's unit
+is the median scene depth at its initialisation, not the metre, so for a
+monocular sensor these "mm" are thousandths of that unit.
+
 The extraction's budget, dynamic mask and area flag, the keypoints that
 the dynamic step culled, each tracking stage's map points and start pose,
-a keyframe's pose and choice of keypoints to spawn, and the BA's window
-(its poses, points and observations) exist only in the session's state:
+a keyframe's pose and choice of keypoints to spawn, a monocular
+keyframe's partners in the previous keyframe (that keyframe's pose,
+keypoints and levels), and the BA's window (its poses, points and
+observations) exist only in the session's state:
 the reference takes them as the timed path handed them on. The keypoints
 themselves, their depths, observation vectors and weights are the
 reference's own.
 """
 from __future__ import annotations
 
+import inspect
 import math
 from typing import NamedTuple
 
@@ -60,8 +72,8 @@ class RefCam(NamedTuple):
 
 def ref_cam(cfg: dict) -> RefCam:
     c = cfg["camera"]
-    return RefCam(c["fx"], c["fy"], c["cx"], c["cy"], c["bf"], c["width"],
-                  c["height"])
+    return RefCam(c["fx"], c["fy"], c["cx"], c["cy"], c.get("bf", 0.0),
+                  c["width"], c["height"])
 
 
 def ref_orb(cfg: dict) -> ref.Orb:
@@ -81,10 +93,14 @@ def ref_frame(cfg, cam, orb, frames, fi, nf, mask, area, dev):
     """The reference's keypoints of frame ``fi`` (with the budget, mask and
     area flag the timed path's extraction had), their depth and u_right:
     RGB-D from the frame's depth image at the rounded pixel, stereo from
-    the row-band match against the right image."""
+    the row-band match against the right image, monocular none (0 and
+    -1)."""
     g = torch.from_numpy(frames.gray[fi]).to(dev).to(torch.float32)
     fr = ref.extract(g, orb, nf, mask, area)
-    if cfg["sensor"] == "stereo":
+    if cfg["sensor"] == "monocular":
+        d = torch.zeros_like(fr.uv[:, 0])
+        ur = torch.full_like(d, -1.0)
+    elif cfg["sensor"] == "stereo":
         right = torch.from_numpy(frames.second[fi]).to(dev).to(torch.float32)
         d, ur = ref.stereo_depth(fr, ref.extract(right, orb, nf), cam,
                                  orb.scale_factor)
@@ -204,20 +220,50 @@ def check_session(records, frames, cfg, ref_model, dev) -> dict:
     return out
 
 
+def _spawn_depth(r, cfg, cam, fr, d, kps):
+    """RGB-D and stereo: the reference's unprojection of each spawned
+    keypoint at its own depth through the keyframe's pose, and whether
+    that depth is one the keyframe spawns from."""
+    f64 = torch.float64
+    c = cfg["camera"]
+    z = d[kps].to(f64)
+    uv = fr.uv[kps].to(f64)
+    pc = torch.stack([(uv[:, 0] - cam.cx) / cam.fx * z,
+                      (uv[:, 1] - cam.cy) / cam.fy * z, z], -1)
+    X = (pc - r["t"].to(f64)) @ r["R"].to(f64)
+    return X, (z > 0) & (z < c["bf"] * c["th_depth"] / c["fx"])
+
+
+def _spawn_mono(r, cfg, cam, fr, d, kps):
+    """Monocular: the reference's triangulation of each spawned keypoint
+    against the previous keyframe's keypoint that names the same new point
+    (its observation, level and pose as the BA received them), and whether
+    there is one and the pair passes every gate."""
+    f64 = torch.float64
+    prev = r["prev"]
+    sf = cfg["orb"]["scale_factor"]
+    pair = r["pid"][kps][:, None] == prev["pid"][None, :]
+    j = torch.argmax(pair.to(torch.uint8), 1)
+    level2 = torch.round(-torch.log(prev["w"][j].to(f64))
+                         / (2.0 * math.log(sf)))
+    # 5.991: CreateNewMapPoints' own chi^2 (2 degrees of freedom, 95 %).
+    X, ok = ref.triangulate(fr.uv[kps].to(f64), fr.level[kps],
+                            prev["uv"][j], level2, r["R"], r["t"], prev["R"],
+                            prev["t"], cam, sf, 5.991)
+    return X, pair.any(1) & ok
+
+
 def check_keyframes(records, frames, cfg, lim, dev) -> dict:
-    """``spawn_gap_mm`` and ``spawn_mismatch_pct`` over the sampled
-    keyframes, and how many keyframes and spawned points they cover."""
-    if cfg["sensor"] == "monocular":
-        return {}                  # mono spawns by triangulation instead
+    """``spawn_gap_mm``, ``spawn_mismatch_pct`` and ``ba_pose_gap_mm``
+    over the sampled keyframes, and how many keyframes and spawned points
+    they cover."""
     cam = ref_cam(cfg)
     orb = ref_orb(cfg)
     S = lim.spawn_per_kf
-    thr = cfg["camera"]["bf"] * cfg["camera"]["th_depth"] \
-        / cfg["camera"]["fx"]
+    spawned = _spawn_mono if cfg["sensor"] == "monocular" else _spawn_depth
     out = {"spawn_gap_mm": 0.0, "spawn_mismatch_pct": 0.0,
            "ba_pose_gap_mm": 0.0, "keyframes_checked": 0,
            "spawned_checked": 0}
-    f64 = torch.float64
     with torch.no_grad(), ref.tf32(False):
         for r in records:
             if r.get("extract") is None:
@@ -231,14 +277,10 @@ def check_keyframes(records, frames, cfg, lim, dev) -> dict:
             new = (pid >= base) & (pid < base + S)
             kps = torch.nonzero(new)[:, 0]
             slots = pid[kps] - base
-            P = r["pos"][slots].to(f64)
-            z = d[kps].to(f64)
-            uv = fr.uv[kps].to(f64)
-            pc = torch.stack([(uv[:, 0] - cam.cx) / cam.fx * z,
-                              (uv[:, 1] - cam.cy) / cam.fy * z, z], -1)
-            X = (pc - r["t"].to(f64)) @ r["R"].to(f64)
-            gap = 1e3 * torch.linalg.norm(P - X, dim=-1)
-            sound = fr.valid[kps] & (z > 0) & (z < thr) & r["valid"][slots]
+            X, spawns = spawned(r, cfg, cam, fr, d, kps)
+            gap = 1e3 * torch.linalg.norm(r["pos"][slots].to(torch.float64)
+                                          - X, dim=-1)
+            sound = fr.valid[kps] & spawns & r["valid"][slots]
             # Every valid slot of the chunk belongs to exactly one keypoint.
             named = torch.zeros_like(r["valid"])
             named[slots] = True
@@ -361,8 +403,9 @@ def install_fault(kind, extractor, realtime, tracking, local_ba):
     ``half_dropped``: every other keypoint slot is left out;
     ``answer_altered``: each tracking stage's pose is moved by 1 cm;
     ``spawn_depth_off``: a keyframe's points are spawned at 1.01 times
-    their depth; ``ba_skipped``: the windowed BA returns its window
-    unchanged."""
+    their depth, unprojected (RGB-D, stereo) or triangulated and moved 1 %
+    along the ray from the keyframe's centre (monocular);
+    ``ba_skipped``: the windowed BA returns its window unchanged."""
     if kind == "state_unchanged":
         realtime._rt_step = lambda g, d, b, st, *a, **k: (st, 0, None)
     elif kind == "half_dropped":
@@ -391,5 +434,16 @@ def install_fault(kind, extractor, realtime, tracking, local_ba):
         orig = realtime._unproject_world
         realtime._unproject_world = lambda cam, uv, depth, R, t: orig(
             cam, uv, 1.01 * depth, R, t)
+        tri = realtime.triangulation
+        orig_tri = tri.triangulate_pair
+        params = inspect.signature(orig_tri)
+
+        def triangulate_pair(*a, **k):
+            res = orig_tri(*a, **k)
+            T1 = params.bind(*a, **k).arguments["T1"]
+            centre = -T1.t @ T1.R
+            return res._replace(points=centre + 1.01 * (res.points - centre))
+
+        tri.triangulate_pair = triangulate_pair
     else:
         raise ValueError(f"unknown fault {kind!r}")

@@ -196,14 +196,20 @@ def _result(cell, trace, t0, setup_s, ready, results, failed, device, log):
     least = counts.frame_least_seconds(
         cfg, int(cell["traffic"].get("detect_every", 1)))
     run = Run(cell, res, t0, setup_s, least, _fast_bound(cfg))
+    warm = int(cell["traffic"]["warmup_frames"])
     for r in res:
         i = r["index"]
         k = len(r["done"])
+        mono_note = ""
+        if "init_step" in r:
+            mono_note = (f" (similarity, scale {r['ate_scale']:.5f}), map "
+                         f"built at step {r['init_step']} of a warm-up of "
+                         f"{warm}")
         log(f"session {i}: {k} frames in the window "
             f"({k / max(run.window_s, 1e-9):.3f} fps), drained "
             f"{r['h_end'] - t0:.3f} s after the start, lost {r['lost']}, "
-            f"ATE {r['ate_m'] * 100:.3f} cm over {r['frames_seen']} "
-            f"distinct frames, keyframes {r['n_kf']}, peak "
+            f"ATE {r['ate_m'] * 100:.3f} cm{mono_note} over "
+            f"{r['frames_seen']} distinct frames, keyframes {r['n_kf']}, peak "
             f"{r['peak_bytes'] / 2 ** 20:.1f} MiB, set-up "
             f"{ready[i]['setup_process_s']:.2f} s (render "
             f"{ready[i]['render_s']:.2f} s), trace {r['trace_s']:.2f} s, check "

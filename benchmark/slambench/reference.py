@@ -4,13 +4,15 @@ Plain PyTorch, frozen here: ORB extraction (antialiased pyramid, FAST-9/16
 as dense tensor ops, grid top-k, intensity-centroid orientation, steered
 BRIEF), the RGB-D depth association and the stereo row-band match, one
 tracking stage (projection search, Hamming match with ratio, mutual and
-rotation checks, then the 4 x 10 robust Gauss-Newton pose solve), the
-keyframe's windowed bundle adjustment and the YOLOv5s v6.0 network. The
+rotation checks, then the 4 x 10 robust Gauss-Newton pose solve), a
+monocular keyframe's two-view triangulation and its gates, the keyframe's
+windowed bundle adjustment and the YOLOv5s v6.0 network. The
 arithmetic follows ORB-SLAM2 and ultralytics v6.0 as the port describes
 it, and is computed here again from the inputs the benchmark made
 (frames, weights) or, where a stage only exists inside a session's state
 (the tracking stages' map points, the extraction budget and dynamic mask,
-the BA's window), from the inputs the timed path handed that stage.
+a monocular keyframe's pairs, the BA's window), from the inputs the timed
+path handed that stage.
 
 The reference computes in float32 with TF32 off (``tf32(False)``, the
 configurations' stated precision) and solves poses and the BA in float64.
@@ -467,6 +469,63 @@ def stereo_depth(fl: Feats, fr: Feats, cam, sf, dtype=torch.float32):
                         torch.zeros_like(md))
     ur = torch.where(ok, ul - md, torch.full_like(md, -1.0))
     return depth.to(torch.float32), ur.to(torch.float32)
+
+
+# ------------------------------------------------------------------ #
+# A monocular keyframe's spawn: two-view triangulation and its gates
+# ------------------------------------------------------------------ #
+
+def triangulate(uv1, level1, uv2, level2, R1, t1, R2, t2, cam, sf,
+                chi2_mono):
+    """LocalMapping::CreateNewMapPoints on pairs of keypoints already
+    matched: ``uv1`` [n, 2] at pyramid levels ``level1`` in keyframe 1 with
+    pose (R1, t1) against ``uv2``, ``level2`` in keyframe 2, all arithmetic
+    in the dtype of ``uv1``. The linear DLT of Initializer::Triangulate on
+    normalised coordinates, the 4 x 4 system built from both projection
+    matrices, solved for the point with its fourth coordinate 1 by least
+    squares, the estimator the port states. (ORB-SLAM2 takes the right
+    singular vector of the smallest singular value instead, which at a
+    parallax of 1.6 degrees moves a point by up to 6 % of its depth.)
+    Then its gates: a positive depth in both views; the parallax
+    cosine between the rays from both camera centres to the point below
+    0.9998; the reprojection error within ``chi2_mono`` x sigma^2 of the
+    keypoint's level in both views; the ratio of the point's distances to
+    the two centres within 1.5 x ``sf`` of the ratio of the levels'
+    scales. Returns (X [n, 3] in the world, passes every gate [n])."""
+    dt, dev = uv1.dtype, uv1.device
+    R1, t1, R2, t2, uv2 = (x.to(dt) for x in (R1, t1, R2, t2, uv2))
+    off = torch.tensor([cam.cx, cam.cy], dtype=dt, device=dev)
+    foc = torch.tensor([cam.fx, cam.fy], dtype=dt, device=dev)
+    x1, x2 = (uv1 - off) / foc, (uv2 - off) / foc
+    P1 = torch.cat([R1, t1[:, None]], 1)
+    P2 = torch.cat([R2, t2[:, None]], 1)
+    A = torch.stack([x1[:, :1] * P1[2] - P1[0], x1[:, 1:] * P1[2] - P1[1],
+                     x2[:, :1] * P2[2] - P2[0], x2[:, 1:] * P2[2] - P2[1]],
+                    1)
+    M = A[..., :3]
+    X = torch.linalg.solve_ex(M.transpose(1, 2) @ M,
+                              -(M.transpose(1, 2) @ A[..., 3:]))[0][..., 0]
+    sf_t = torch.full((), sf, dtype=dt, device=dev)
+    l1, l2 = level1.to(dt), level2.to(dt)
+
+    def seen(R, t, uv, level):
+        p = X @ R.T + t
+        z = p[:, 2]
+        e = torch.stack([cam.fx * p[:, 0] / z + cam.cx,
+                         cam.fy * p[:, 1] / z + cam.cy], -1) - uv
+        return (z > 0) & (torch.sum(e * e, -1)
+                          <= chi2_mono * torch.pow(sf_t, 2.0 * level))
+
+    r1, r2 = X + t1 @ R1, X + t2 @ R2          # X minus each camera centre
+    d1, d2 = torch.linalg.norm(r1, dim=-1), torch.linalg.norm(r2, dim=-1)
+    parallax = torch.sum(r1 * r2, -1) / (d1 * d2) < 0.9998
+    ratio_dist = d2 / d1
+    ratio_octave = torch.pow(sf_t, l1 - l2)
+    rf = 1.5 * sf
+    scale = (ratio_dist * rf >= ratio_octave) \
+        & (ratio_dist <= ratio_octave * rf)
+    return X, seen(R1, t1, uv1, l1) & seen(R2, t2, uv2, l2) & parallax \
+        & scale
 
 
 # ------------------------------------------------------------------ #

@@ -70,6 +70,80 @@ class Sample:
         return [self.slots[k] for k in sorted(self.slots)]
 
 
+class KeyframeCapture:
+    """The sampled keyframes of the window as the timed path handed them
+    to the windowed BA: the new ring row and its point chunk (and, for a
+    monocular sensor, the previous keyframe's row, whose keypoints the
+    spawned points were triangulated against), copied on the device with
+    no sync; and the BA's problem and result as it built and solved them.
+
+    A ``_windowed_ba`` call is sampled only when the keyframe count has
+    advanced since the last one, that is when ``_create_keyframe`` has run
+    since: a loop closure's junction BA runs at the same count
+    (``maintenance.py``) and is not a keyframe."""
+
+    def __init__(self, sample, lim, mono, cur, last_extract):
+        self.sample, self.lim, self.mono = sample, lim, mono
+        self.cur, self.last_extract = cur, last_extract
+        self.new_kf = False
+        self.keyframes = 0
+
+    def install(self, realtime, local_ba):
+        make, ba = realtime._create_keyframe, realtime._windowed_ba
+        solve = local_ba.optimize_local_ba
+
+        def create_keyframe(*a, **k):
+            self.new_kf = True
+            return make(*a, **k)
+
+        def windowed_ba(st, *a, **k):
+            self.begin(st)
+            try:
+                return ba(st, *a, **k)
+            finally:
+                self.sample.cur = None
+
+        def optimize_local_ba(prob, *a, **k):
+            res = solve(prob, *a, **k)
+            if self.sample.cur is not None:
+                self.sample.cur["ba"] = (prob, res)
+            return res
+
+        realtime._create_keyframe = create_keyframe
+        realtime._windowed_ba = windowed_ba
+        local_ba.optimize_local_ba = optimize_local_ba
+
+    def begin(self, st):
+        import torch
+        new_kf, self.new_kf = self.new_kf, False
+        self.sample.cur = None
+        if not (new_kf and self.cur["window"]):
+            return
+        self.sample.begin(self.keyframes, self.cur["frame"])
+        self.keyframes += 1
+        rec = self.sample.cur
+        if rec is None:
+            return
+        K, S = self.lim.max_kf, self.lim.spawn_per_kf
+
+        def row(arr, k):
+            return arr.index_select(0, k.reshape(1))[0]
+
+        kp = (st.n_kf - 1) % K
+        rows = kp * S + torch.arange(S, device=st.n_kf.device)
+        rec.update(extract=self.last_extract[0], n_kf=st.n_kf.clone(),
+                   pid=row(st.kf_pid, kp), R=row(st.kf_R, kp),
+                   t=row(st.kf_t, kp), pos=st.pt_pos.index_select(0, rows),
+                   valid=st.pt_valid.index_select(0, rows))
+        if self.mono:
+            # The previous keyframe's row with the new points' ids that
+            # _create_keyframe wrote into it.
+            pk = (st.n_kf - 2) % K
+            rec["prev"] = {"R": row(st.kf_R, pk), "t": row(st.kf_t, pk),
+                           "uv": row(st.kf_obs, pk)[:, :2],
+                           "w": row(st.kf_w, pk), "pid": row(st.kf_pid, pk)}
+
+
 def span_target(path, objects):
     """(owner, attribute) of a span's target as the configuration names
     it: ``<object>.<method>`` for one of the session's ``objects``
@@ -163,7 +237,7 @@ def run(index, cell, seed, seconds, trace, conn, opts):
     host = {}
     rf = {} if trace else None          # span intervals, traced runs only
     last_extract = [None]
-    cur = {"window": False, "frame": 0, "keyframes": 0}
+    cur = {"window": False, "frame": 0}
 
     def keep_extract(args, kw, out):
         inputs = (kw.get("n_features"), kw.get("dynamic_mask"),
@@ -180,38 +254,9 @@ def run(index, cell, seed, seconds, trace, conn, opts):
         if sample.cur is not None:
             sample.cur["heads"] = out
 
-    # The keyframe's spawned points as the BA receives them: the new
-    # ring row and its point chunk, copied on the device (no sync); and
-    # the BA's problem and result as the timed path built and solved them.
-    ba = realtime._windowed_ba
-    solve = local_ba.optimize_local_ba
-    K, S = lim.max_kf, lim.spawn_per_kf
-
-    def optimize_local_ba(prob, *a, **k):
-        res = solve(prob, *a, **k)
-        if cur["window"] and kf_sample.cur is not None:
-            kf_sample.cur["ba"] = (prob, res)
-        return res
-
-    def windowed_ba(st, *a, **k):
-        kf_sample.cur = None
-        if cur["window"]:
-            kf_sample.begin(cur["keyframes"], cur["frame"])
-            cur["keyframes"] += 1
-            if kf_sample.cur is not None:
-                kp = (st.n_kf - 1) % K
-                rows = kp * S + torch.arange(S, device=st.n_kf.device)
-                kf_sample.cur.update(
-                    extract=last_extract[0], n_kf=st.n_kf.clone(),
-                    pid=st.kf_pid.index_select(0, kp.reshape(1))[0],
-                    R=st.kf_R.index_select(0, kp.reshape(1))[0],
-                    t=st.kf_t.index_select(0, kp.reshape(1))[0],
-                    pos=st.pt_pos.index_select(0, rows),
-                    valid=st.pt_valid.index_select(0, rows))
-        return ba(st, *a, **k)
-
-    realtime._windowed_ba = windowed_ba
-    local_ba.optimize_local_ba = optimize_local_ba
+    mono = cfg.sensor == "monocular"
+    KeyframeCapture(kf_sample, lim, mono, cur, last_extract).install(
+        realtime, local_ba)
 
     # Spans around the port's functions, as the configuration names them;
     # the check's captures ride on the extraction's span.
@@ -322,8 +367,9 @@ def run(index, cell, seed, seconds, trace, conn, opts):
     order = [traffic.ping_pong(s, n) for s in range(len(ok))]
     est = -np.einsum("nji,nj->ni", res["R"], res["t"])
     gt = frames.centres[order]
-    ate_m = stats.ate_rmse(est[ok], gt[ok]) if ok.sum() >= 3 \
-        else float("nan")
+    # A monocular map has its own scale: align by a similarity.
+    ate_m, ate_scale = stats.ate_rmse(est[ok], gt[ok], with_scale=mono) \
+        if ok.sum() >= 3 else (float("nan"), float("nan"))
     out = {
         "index": index, "t0": t0, "h0": h0, "h_end": h_end,
         "hand": [r[0] for r in rec], "back": [r[1] for r in rec],
@@ -331,9 +377,13 @@ def run(index, cell, seed, seconds, trace, conn, opts):
         "attempted": len(rec), "peak_bytes": int(peak),
         "chip_used_bytes": int(chip_used),
         "maint_host_ms": list(host.get("maint", [])),
-        "syncs": len(syncs), "ate_m": ate_m, "n_kf": int(res["n_kf"]),
-        "frames_seen": len(set(order)),
+        "syncs": len(syncs), "ate_m": ate_m, "ate_scale": ate_scale,
+        "n_kf": int(res["n_kf"]), "frames_seen": len(set(order)),
     }
+    if mono:
+        # The step (warm-up steps first) whose two-view attempt built the map.
+        out["init_step"] = next((a["frame"] for a in res["init_attempts"]
+                                 if a["ok"]), None)
     if trace:
         lo = (h0 * 1e9) + wall0
         hi = (h_end * 1e9) + wall0

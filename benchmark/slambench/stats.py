@@ -1,6 +1,6 @@
 """Statistics of the harness: percentiles, the union of intervals, and the
 absolute trajectory error (Horn/Umeyama rigid alignment, as TUM's
-``evaluate_ate.py``)."""
+``evaluate_ate.py``, or with scale for a monocular trajectory)."""
 from __future__ import annotations
 
 import numpy as np
@@ -41,18 +41,25 @@ def gaps(intervals: np.ndarray, lo: float, hi: float) -> np.ndarray:
     return g[g[:, 1] > g[:, 0]]
 
 
-def ate_rmse(est_centres: np.ndarray, gt_centres: np.ndarray) -> float:
-    """RMSE of the estimated camera centres after the rigid alignment that
-    best maps them onto the ground truth ([n, 3] each, paired by row)."""
+def ate_rmse(est_centres: np.ndarray, gt_centres: np.ndarray,
+             with_scale: bool = False) -> tuple:
+    """(RMSE, scale) of the estimated camera centres after the alignment
+    that best maps them onto the ground truth ([n, 3] each, paired by row):
+    rigid, or with ``with_scale`` a similarity (Umeyama 1991, the 7-DoF
+    alignment of a monocular trajectory, whose map has a scale of its own;
+    the scale is 1 without it)."""
     m = np.asarray(est_centres, np.float64).T
     d = np.asarray(gt_centres, np.float64).T
     mz = m - m.mean(1, keepdims=True)
     dz = d - d.mean(1, keepdims=True)
-    U, _, Vt = np.linalg.svd((mz @ dz.T).T)
+    U, D, Vt = np.linalg.svd((mz @ dz.T).T)
     S = np.eye(3)
     if np.linalg.det(U) * np.linalg.det(Vt) < 0:
         S[2, 2] = -1
     R = U @ S @ Vt
-    t = d.mean(1, keepdims=True) - R @ m.mean(1, keepdims=True)
-    err = R @ m + t - d
-    return float(np.sqrt((err * err).sum(0).mean()))
+    s = float(np.trace(np.diag(D) @ S) / (mz * mz).sum()) if with_scale \
+        else 1.0
+    t = d.mean(1, keepdims=True) - s * R @ m.mean(1, keepdims=True)
+    err = s * R @ m + t - d
+    return float(np.sqrt((err * err).sum(0).mean())), s
+

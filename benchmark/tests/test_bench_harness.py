@@ -52,6 +52,21 @@ def _small(cell):
     return c
 
 
+def _mono_small(cell):
+    """The RGB-D cell turned into the test copy's monocular configuration
+    (``track_mono``, no detector), at ``_small``'s size: long enough that
+    the two-view initialisation falls in the warm-up and keyframes in the
+    window. Its limits are the RGB-D cell's with the spawn mismatch."""
+    c = _small(cell)
+    c["config"].update(name="mono_tum1", sensor="monocular",
+                       detector_enabled=False,
+                       entry={"method": "track_mono",
+                              "args": ["gray", "stamp", "boxes"]})
+    c["traffic"].update(frames=24, warmup_frames=5)
+    c["limits"]["spawn_mismatch_pct"] = 2.0
+    return c
+
+
 # ------------------------------------------------------------------ #
 # The files resolve, and a new cell needs only new files
 # ------------------------------------------------------------------ #
@@ -273,7 +288,17 @@ def test_percentile_union_gaps_and_ate():
     assert stats.gaps(u, 0, 10).tolist() == [[3, 5], [6, 10]]
     gt = np.random.RandomState(0).randn(20, 3)
     R = np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1]], float)
-    assert stats.ate_rmse(gt @ R.T + 1.0, gt) < 1e-9
+    assert stats.ate_rmse(gt @ R.T + 1.0, gt)[0] < 1e-9
+
+
+def test_ate_with_scale_aligns_a_monocular_trajectory():
+    gt = np.random.RandomState(1).randn(30, 3)
+    R = np.array([[0, 0, 1], [0, 1, 0], [-1, 0, 0]], float)
+    est = 2.5 * gt @ R.T + np.array([0.3, -1.0, 2.0])
+    err, scale = stats.ate_rmse(est, gt, with_scale=True)
+    assert err < 1e-9 and abs(scale - 0.4) < 1e-12
+    err, scale = stats.ate_rmse(est, gt)
+    assert err > 0.5 and scale == 1.0
 
 
 def test_ping_pong_and_session_seeds():
@@ -344,6 +369,55 @@ def test_reference_stereo_depth_equals_the_port():
     assert torch.equal(d, fd.depth) and torch.equal(ur, fd.ur)
 
 
+def test_reference_triangulation_equals_the_port():
+    """The port's epipolar match and triangulation of a keyframe pair
+    against the reference's float64 triangulation of the same pairs."""
+    from coebslam_tpu_torch import config as cm
+    from coebslam_tpu_torch.geometry.se3 import SE3
+    from coebslam_tpu_torch.ops import triangulation
+    cell = _mono_small(spec.cell(ROOT, _bench(), "rgbd_tum_walking.fleet"))
+    cfg = cm.config_from_dict(cell["config"])
+    cam = checks.ref_cam(cell["config"])
+    g = torch.Generator().manual_seed(3)
+    n = 200
+    X = torch.stack([torch.rand(n, generator=g) * 2.0 - 1.0,
+                     torch.rand(n, generator=g) * 1.5 - 0.75,
+                     torch.rand(n, generator=g) * 2.0 + 1.0], -1)
+    a = 0.05
+    R2 = torch.tensor([[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                       [-math.sin(a), 0, math.cos(a)]])
+    T1 = SE3(torch.eye(3), torch.zeros(3))
+    T2 = SE3(R2, torch.tensor([-0.12, 0.01, 0.0]))
+
+    def project(T):
+        p = X @ T.R.T + T.t
+        uv = torch.stack([cam.fx * p[:, 0] / p[:, 2] + cam.cx,
+                          cam.fy * p[:, 1] / p[:, 2] + cam.cy], -1)
+        return uv + 0.3 * torch.randn(n, 2, generator=g)
+
+    uv1, uv2 = project(T1), project(T2)
+    desc = torch.randint(0, 256, (n, 32), generator=g, dtype=torch.uint8)
+    sd = reference.signed(desc)
+    level = torch.randint(0, 3, (n,), generator=g)
+    ok = torch.ones(n, dtype=torch.bool)
+    p = triangulation.triangulate_pair(
+        uv1, sd, ok, level, uv2, sd, ok, level.float(), -torch.ones(n),
+        T1, T2, cfg.camera, cfg.orb, cfg.matcher)
+    assert bool((p.idx2[p.good] == torch.arange(n)[p.good]).all())
+    f64 = torch.float64
+    Xr, good = reference.triangulate(
+        uv1.to(f64), level, uv2, level, T1.R, T1.t, T2.R, T2.t, cam,
+        cfg.orb.scale_factor, 5.991)
+    # Every pair the port keeps passes the reference's gates. (The port's
+    # epipolar band also turns away some true pairs, which the reference
+    # takes as matched: the check compares the pairs the program made.)
+    assert int(p.good.sum()) > 0.5 * n and int(good.sum()) > 0.9 * n
+    assert not bool((p.good & ~good).any())
+    gap = torch.linalg.norm(p.points.to(f64) - Xr, dim=-1)[p.good]
+    # float32 normal equations against float64: 5e-5 of the depth here.
+    assert float(gap.max()) < 1e-4 * float(torch.linalg.norm(Xr, dim=-1).max())
+
+
 def test_reference_detector_equals_the_port():
     from coebslam_tpu_torch import config as cm
     from coebslam_tpu_torch.models import detector as det_mod
@@ -369,12 +443,13 @@ def test_reference_detector_equals_the_port():
 # Whole runs on the CPU: sound, and with a fault planted underneath
 # ------------------------------------------------------------------ #
 
-def _run(name, opts=None, seconds=2.0, trace=0, seed=2 ** 31 + 5):
-    cell = _small(spec.cell(ROOT, _bench(), name))
+def _run(name, opts=None, seconds=2.0, trace=0, seed=2 ** 31 + 5,
+         edit=_small, log=None):
+    cell = edit(spec.cell(ROOT, _bench(), name))
     o = {"device": "cpu"}
     o.update(opts or {})
     return fleet.run(cell, seed, seconds, trace, time.monotonic(), o,
-                     log=lambda s: None)
+                     log=log or (lambda s: None))
 
 
 def _schema(res, trace):
@@ -430,6 +505,89 @@ def test_a_planted_fault_makes_the_run_incorrect(name, fault):
     if fault == "ba_skipped":
         assert res["checks"]["ba_pose_gap_mm"]["value"] \
             > res["checks"]["ba_pose_gap_mm"]["limit"]
+
+
+def test_a_sound_monocular_run_is_correct():
+    """The test copy's ``track_mono`` configuration: no depth in the
+    reference's observations, keyframes spawned by triangulation against
+    the previous keyframe and checked so, the map's scale fitted by the
+    ATE's similarity."""
+    lines = []
+    res, code = _run("rgbd_tum_walking.fleet", seconds=8.0, edit=_mono_small,
+                     log=lines.append)
+    assert code == 0
+    _schema(res, 0)
+    assert res["correct"], res["checks"]
+    c = res["checks"]
+    assert c["match_mismatch_pct"]["value"] == 0.0
+    assert c["pose_gap_mm"]["value"] < 2.0
+    assert {"spawn_gap_mm", "spawn_mismatch_pct", "ba_pose_gap_mm",
+            "ate_cm"} <= set(c)
+    line = next(s for s in lines if s.startswith("session 0:"))
+    checked = int(line.split("keyframes checked ")[1].split()[0])
+    spawned = int(line.split(" with ")[1].split()[0])
+    built = int(line.split("map built at step ")[1].split()[0])
+    assert checked >= 1 and spawned >= 1 and built < 5, line
+    assert "similarity, scale" in line
+
+
+@pytest.mark.parametrize("fault", checks.KEYFRAME_FAULTS)
+def test_a_planted_keyframe_fault_makes_a_monocular_run_incorrect(fault):
+    res, code = _run("rgbd_tum_walking.fleet", {"fault": fault},
+                     seconds=8.0, edit=_mono_small)
+    assert res is not None
+    c = res["checks"]
+    assert res["correct"] is False, (fault, c)
+    if fault == "spawn_depth_off":
+        assert c["spawn_gap_mm"]["value"] > c["spawn_gap_mm"]["limit"]
+        assert c["spawn_mismatch_pct"]["value"] == 0.0
+    else:
+        assert c["ba_pose_gap_mm"]["value"] > c["ba_pose_gap_mm"]["limit"]
+
+
+def test_a_junction_ba_at_the_same_keyframe_count_is_not_a_keyframe():
+    """A loop closure's junction BA calls ``_windowed_ba`` again at the
+    keyframe count of the last keyframe: only the keyframe's own BA is
+    recorded, with the previous keyframe's row for a monocular sensor."""
+    from types import SimpleNamespace
+    from coebslam_tpu_torch import config as cm
+    from coebslam_tpu_torch.slam import realtime
+    from slambench import session
+    cell = _mono_small(spec.cell(ROOT, _bench(), "rgbd_tum_walking.fleet"))
+    lim = realtime.RTLimits(**cell["config"]["limits"])
+    st = realtime.init_state(cm.config_from_dict(cell["config"]), lim, "cpu")
+    sample = session.Sample(8, np.random.RandomState(0))
+    cur = {"window": True, "frame": 3}
+    cap = session.KeyframeCapture(sample, lim, True, cur, [("budget",)])
+    solved = []
+    rt = SimpleNamespace()
+    lba = SimpleNamespace(optimize_local_ba=lambda prob: solved.append(prob))
+    rt._windowed_ba = lambda s: (lba.optimize_local_ba("window"), s)[1]
+    rt._create_keyframe = lambda s: rt._windowed_ba(
+        s._replace(n_kf=s.n_kf + 1))
+    cap.install(rt, lba)
+    st = rt._create_keyframe(st._replace(n_kf=torch.tensor(2)))
+    rt._windowed_ba(st)                       # the junction BA
+    assert len(solved) == 2
+    recs = sample.records()
+    assert len(recs) == 1 and int(recs[0]["n_kf"]) == 3
+    assert recs[0]["ba"][0] == "window" and recs[0]["extract"] == ("budget",)
+    assert set(recs[0]["prev"]) == {"R", "t", "uv", "w", "pid"}
+    assert recs[0]["prev"]["uv"].shape == (st.kf_obs.shape[1], 2)
+    # Outside the window nothing is recorded, and the flag is spent.
+    cur["window"] = False
+    rt._create_keyframe(st)
+    cur["window"] = True
+    rt._windowed_ba(st)
+    assert len(sample.records()) == 1
+
+
+def test_the_control_is_not_correct_on_a_monocular_run():
+    import control
+    res, code = control.run_control("rgbd_tum_walking.fleet", 2 ** 31 + 9,
+                                    8.0, {"device": "cpu"}, _mono_small)
+    assert res is not None
+    assert res["correct"] is False, res["checks"]
 
 
 # ------------------------------------------------------------------ #
