@@ -17,6 +17,23 @@ from the frames the benchmark made:
 - ``pose_gap_mm``: the stages' poses against the reference's pose solve in
   float64, the larger of the translation gap and the rotation gap times
   1 m, in mm.
+- ``stages_unsolved`` (a count, no limit): sampled stages where fewer than
+  3 matches enter the reference's pose solve. ORB-SLAM2's
+  ``Optimizer::PoseOptimization`` returns before optimising when
+  ``nInitialCorrespondences < 3``: 1-2 matches give 2-6 rows for 6
+  unknowns, so the pose has no defined answer, and float32 against
+  float64 lands anywhere. This is no tolerance: such a stage has no pose
+  and no inliers to compare. Its number of matches is compared exactly
+  instead: where the port's (``n_matches``, before its solve) differs
+  from the reference's, the stage reads ``match_mismatch_pct`` 100. The
+  port cannot make a frame from such a stage (it needs
+  ``min_inliers_track`` inliers), and the next stage, which starts from
+  its pose, is compared on its own inputs. The rule is keyed on the
+  reference's count alone: a port that finds fewer than 3 matches where
+  the reference finds 3 or more is compared in full. ``stages_solved``
+  counts the others; a run that compares ``pose_gap_mm`` and solved no
+  sampled stage is not correct (``fleet._not_covered``), since its pose
+  and inlier numbers would read 0 by default.
 - ``spawn_gap_mm`` (``check_keyframes``): on sampled keyframes of the
   window, the largest distance between a point the keyframe spawned, as
   the windowed BA receives it, and the reference's position of it in
@@ -116,7 +133,8 @@ def ref_frame(cfg, cam, orb, frames, fi, nf, mask, area, dev):
 
 def ref_stage(cfg, cam, args, dtype, fr=None, ur=None):
     """The reference's tracking stage on the inputs the timed path handed
-    to one stage: (R, t, point index per keypoint). With the reference's
+    to one stage: (R, t, point index per keypoint, matches that entered
+    the pose solve). With the reference's
     own keypoints ``fr`` and u_right ``ur``, the keypoints, observation
     vectors and weights are the reference's, and only the validity after
     the dynamic step's culling is the stage's."""
@@ -171,6 +189,25 @@ def pose_gap_mm(R1, t1, R2, t2):
     return 1e3 * max(dt, ang * 1.0)
 
 
+def compare_stage(out, res, R, t, idx, n_ref):
+    """Fold one tracking stage into the session's numbers: the port's
+    result ``res`` against the reference's (R, t, idx) from ``n_ref``
+    matches. Below ``reference.MIN_POSE_MATCHES`` only the count of
+    matches is compared (module docstring)."""
+    if n_ref < ref.MIN_POSE_MATCHES:
+        out["stages_unsolved"] += 1
+        if int(res.n_matches) != n_ref:
+            out["match_mismatch_pct"] = 100.0
+        return
+    out["stages_solved"] += 1
+    either = (res.point_idx >= 0) | (idx >= 0)
+    out["match_mismatch_pct"] = max(
+        out["match_mismatch_pct"],
+        _pct(either & (res.point_idx != idx), either))
+    out["pose_gap_mm"] = max(out["pose_gap_mm"], pose_gap_mm(
+        res.pose.R, res.pose.t, R, t))
+
+
 def check_session(records, frames, cfg, ref_model, dev) -> dict:
     """The session's numbers: each the largest over its sampled frames."""
     cam = ref_cam(cfg)
@@ -178,7 +215,8 @@ def check_session(records, frames, cfg, ref_model, dev) -> dict:
     stereo = cfg["sensor"] == "stereo"
     out = {"feat_mismatch_pct": 0.0, "match_mismatch_pct": 0.0,
            "pose_gap_mm": 0.0, "missing_outputs": 0,
-           "frames_checked": len(records)}
+           "frames_checked": len(records), "stages_solved": 0,
+           "stages_unsolved": 0}
     if stereo:
         out["depth_mismatch_pct"] = 0.0
     if ref_model is not None:
@@ -210,13 +248,8 @@ def check_session(records, frames, cfg, ref_model, dev) -> dict:
                           for a, b in zip(r["heads"], heads_r))
                 out["det_head_rel_err"] = max(out["det_head_rel_err"], err)
             for args, res in r["stages"]:
-                R, t, idx = ref_stage(cfg, cam, args, torch.float64, fr, ur_r)
-                either = (res.point_idx >= 0) | (idx >= 0)
-                out["match_mismatch_pct"] = max(
-                    out["match_mismatch_pct"],
-                    _pct(either & (res.point_idx != idx), either))
-                out["pose_gap_mm"] = max(out["pose_gap_mm"], pose_gap_mm(
-                    res.pose.R, res.pose.t, R, t))
+                compare_stage(out, res, *ref_stage(cfg, cam, args,
+                                                   torch.float64, fr, ur_r))
     return out
 
 
@@ -363,11 +396,11 @@ def install_control(det, ref_model, cfg, extractor, frame, tracking,
                                 dtype=torch.bfloat16)
 
     def track_step(*args):
-        R, t, idx = ref_stage(cfg, cam, args, torch.bfloat16)
+        R, t, idx, n = ref_stage(cfg, cam, args, torch.bfloat16)
         inl = idx >= 0
         return tracking.TrackStepResult(
             SE3(R.to(torch.float32), t.to(torch.float32)), idx, inl,
-            inl.sum(), inl.sum())
+            inl.sum(), torch.tensor(n, device=idx.device))
 
     def optimize_local_ba(prob, *_a, **_k):
         R, t, X, valid = ref_ba(cfg, cam, prob, torch.bfloat16)

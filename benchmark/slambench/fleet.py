@@ -213,7 +213,9 @@ def _result(cell, trace, t0, setup_s, ready, results, failed, device, log):
             f"{r['peak_bytes'] / 2 ** 20:.1f} MiB, set-up "
             f"{ready[i]['setup_process_s']:.2f} s (render "
             f"{ready[i]['render_s']:.2f} s), trace {r['trace_s']:.2f} s, check "
-            f"{r['check_s']:.2f} s, syncs {r['syncs']}, keyframes checked "
+            f"{r['check_s']:.2f} s, syncs {r['syncs']}, stages solved "
+            f"{r['check'].get('stages_solved')}, unsolved "
+            f"{r['check'].get('stages_unsolved')}, keyframes checked "
             f"{r['check'].get('keyframes_checked')} with "
             f"{r['check'].get('spawned_checked')} spawned points, spawn gap "
             f"{r['check'].get('spawn_gap_mm')} mm, mismatch "
@@ -254,12 +256,9 @@ def _result(cell, trace, t0, setup_s, ready, results, failed, device, log):
     bad_mod = sorted(set(forbidden_modules()).union(
         *[set(r["forbidden"]) for r in res]))
     unchecked = [r["index"] for r in res if r["check"]["frames_checked"] == 0]
-    # A compared keyframe number needs a keyframe checked in the run.
-    no_keyframe = bool({"spawn_gap_mm", "spawn_mismatch_pct",
-                        "ba_pose_gap_mm"} & set(lim)) and not sum(
-        r["check"].get("keyframes_checked", 0) for r in res)
+    missing = _not_covered(lim, [r["check"] for r in res])
     correct = (not failed and not bad_mod and not unchecked
-               and not no_keyframe
+               and not missing
                and all(c["value"] <= c["limit"] for c in checks.values()))
     # A session that failed after the start counts its share of the
     # window's frames as attempted and failed.
@@ -275,6 +274,22 @@ def _result(cell, trace, t0, setup_s, ready, results, failed, device, log):
         return None, 5
     if unchecked:
         log(f"sessions with no frame checked: {unchecked}")
-    if no_keyframe:
-        log("no keyframe of the window was checked")
+    for why in missing:
+        log(why)
     return result, (0 if not failed else 1)
+
+
+def _not_covered(lim, session_checks):
+    """What the run left unchecked that a compared number needs, one line
+    each; empty when all is there. A keyframe number needs a keyframe
+    checked, and ``pose_gap_mm`` a sampled stage that was solved: without
+    them those numbers read 0 by default."""
+    def total(key):
+        return sum(c.get(key, 0) for c in session_checks)
+    why = []
+    if {"spawn_gap_mm", "spawn_mismatch_pct", "ba_pose_gap_mm"} & set(lim) \
+            and not total("keyframes_checked"):
+        why.append("no keyframe of the window was checked")
+    if "pose_gap_mm" in lim and not total("stages_solved"):
+        why.append("no sampled stage of the window was solved")
+    return why

@@ -562,13 +562,28 @@ def orthonormalize(R, iterations=2):
     return R
 
 
+# ORB-SLAM2's Optimizer::PoseOptimization solves no pose from fewer matches.
+MIN_POSE_MATCHES = 3
+
+
 def solve_pose(R, t, X, obs, w_info, valid, cam, opt, dtype):
     """ORB-SLAM2's PoseOptimization as the port schedules it: ``rounds``
     rounds of ``iters`` Gauss-Newton steps on the (u, v, u_right) edges,
     Huber weights in the first two rounds, chi^2 gating after each, the
     step clipped at 0.5. All arithmetic in ``dtype``. Returns (R, t,
-    inliers)."""
+    inliers).
+
+    With fewer than ``MIN_POSE_MATCHES`` valid matches there is no pose to
+    solve for (6 unknowns, 2-3 rows a match): the input pose comes back
+    unchanged with no inliers, as ORB-SLAM2's
+    ``Optimizer::PoseOptimization`` returns before optimising when
+    ``nInitialCorrespondences < 3``. The check (``checks.compare_stage``)
+    compares no pose there, whatever this returns; the early return is for
+    the control, which puts this solve in the port's place and so skips
+    these solves as ORB-SLAM2 does."""
     R, t, X, obs, w_info = (x.to(dtype) for x in (R, t, X, obs, w_info))
+    if int(valid.sum()) < MIN_POSE_MATCHES:
+        return R, t, torch.zeros_like(valid)
     stereo = obs[:, 2] >= 0.0
     chi2_th = torch.where(stereo, torch.tensor(opt["chi2_stereo"], dtype=dtype,
                                                device=X.device),
@@ -793,8 +808,9 @@ def track_stage(uv, level, angle, desc_signed, valid, obs, w_info, R, t,
     PoseOptimization): project the candidate points from (R, t), match the
     keypoints within ``radius`` x level scale and +-1 octave of the
     predicted one, keep the rotation-consistent matches, then solve the
-    pose. Returns (R, t, point index per keypoint of the final inliers or
-    -1)."""
+    pose (``solve_pose``: none from fewer than 3 matches). Returns (R, t,
+    point index per keypoint of the final inliers or -1, the number of
+    matches that entered the solve)."""
     pc = pts @ R.T + t
     z = pc[:, 2]
     zs = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
@@ -825,7 +841,8 @@ def track_stage(uv, level, angle, desc_signed, valid, obs, w_info, R, t,
     m = rotation_filter(angle, pt_angle, m, match_cfg["histo_length"])
     X = pts[torch.clamp(m.idx, min=0)]
     R2, t2, inl = solve_pose(R, t, X, obs, w_info, m.valid, cam, opt, dtype)
-    return R2, t2, torch.where(inl, m.idx, torch.full_like(m.idx, -1))
+    return (R2, t2, torch.where(inl, m.idx, torch.full_like(m.idx, -1)),
+            int(m.valid.sum()))
 
 
 # ------------------------------------------------------------------ #

@@ -318,6 +318,117 @@ def test_pose_gap_is_precise_near_the_identity():
 
 
 # ------------------------------------------------------------------ #
+# A tracking stage with fewer than 3 matches has no pose to compare
+# ------------------------------------------------------------------ #
+
+def _compare_stage(n_ref, moved_m=0.0, n_port=None):
+    """One stage through ``checks.compare_stage``: the reference's pose
+    from ``n_ref`` matches (its inliers, or none below 3), the port's pose
+    moved ``moved_m`` along x with its own inliers and ``n_port`` matches
+    before its solve (default: the reference's count)."""
+    from coebslam_tpu_torch.geometry.se3 import SE3
+    from coebslam_tpu_torch.slam import tracking
+    f64 = torch.float64
+    ids = torch.full((16,), -1, dtype=torch.int64)
+    ids[:n_ref] = torch.arange(n_ref) + 5
+    ref_idx = ids if n_ref >= reference.MIN_POSE_MATCHES else \
+        torch.full_like(ids, -1)
+    R, t = torch.eye(3, dtype=f64), torch.tensor([0.1, -0.2, 1.5], dtype=f64)
+    moved = t + torch.tensor([moved_m, 0.0, 0.0], dtype=f64)
+    n = n_ref if n_port is None else n_port
+    res = tracking.TrackStepResult(SE3(R.float(), moved.float()), ids.clone(),
+                                   ids >= 0, (ids >= 0).sum(), torch.tensor(n))
+    out = {"match_mismatch_pct": 0.0, "pose_gap_mm": 0.0,
+           "stages_solved": 0, "stages_unsolved": 0}
+    checks.compare_stage(out, res, R, t, ref_idx, n_ref)
+    return out
+
+
+def _passes(out):
+    lim = spec.cell(ROOT, _bench(), "rgbd_tum_walking.fleet")["limits"]
+    return all(out[k] <= lim[k] for k in ("match_mismatch_pct",
+                                          "pose_gap_mm"))
+
+
+@pytest.mark.parametrize("n_ref,moved_m", [(2, 1.0), (0, 0.0)])
+def test_a_stage_below_3_reference_matches_is_not_failed_for_its_pose(
+        n_ref, moved_m):
+    out = _compare_stage(n_ref, moved_m)
+    assert out == {"match_mismatch_pct": 0.0, "pose_gap_mm": 0.0,
+                   "stages_solved": 0, "stages_unsolved": 1}
+    assert _passes(out)
+
+
+@pytest.mark.parametrize("n_ref,n_port", [(2, 3), (2, 1), (0, 1)])
+def test_a_stage_below_3_matches_fails_on_the_count_of_matches(n_ref,
+                                                                n_port):
+    out = _compare_stage(n_ref, n_port=n_port)
+    assert out["match_mismatch_pct"] == 100.0 and out["stages_unsolved"] == 1
+    assert not _passes(out)
+
+
+@pytest.mark.parametrize("n_ref", [3, 8])
+def test_a_stage_of_3_matches_or_more_is_compared_in_full(n_ref):
+    assert _passes(_compare_stage(n_ref))
+    out = _compare_stage(n_ref, 0.01)
+    assert out["stages_unsolved"] == 0 and out["stages_solved"] == 1
+    assert abs(out["pose_gap_mm"] - 10.0) < 1e-4 and not _passes(out)
+    # A port that finds fewer than 3 where the reference finds 3 or more
+    # is still held to the pose.
+    out = _compare_stage(n_ref, 0.01, n_port=2)
+    assert out["stages_unsolved"] == 0 and not _passes(out)
+
+
+def test_a_run_whose_sampled_stages_all_have_fewer_than_3_matches_fails():
+    """Every stage under 3 reference matches, the port's counts equal:
+    the pose and inlier numbers read 0 by default, so the run is not
+    correct for want of a solved stage, as it is for want of a keyframe."""
+    lim = spec.cell(ROOT, _bench(), "rgbd_tum_walking.fleet")["limits"]
+    sessions = []
+    for n_ref in (0, 1, 2, 2):
+        out = _compare_stage(n_ref, 1.0)
+        out["keyframes_checked"] = 2
+        sessions.append(out)
+    assert all(_passes(c) for c in sessions)
+    assert fleet._not_covered(lim, sessions) == [
+        "no sampled stage of the window was solved"]
+    sessions[-1] = dict(sessions[-1], stages_solved=1)
+    assert fleet._not_covered(lim, sessions) == []
+    # Without a pose limit, as without a keyframe limit, nothing is owed.
+    assert fleet._not_covered({"feat_mismatch_pct": 5.0},
+                              [dict(c, keyframes_checked=0)
+                               for c in sessions[:1]]) == []
+    assert fleet._not_covered(lim, [dict(c, keyframes_checked=0)
+                                    for c in sessions]) == [
+        "no keyframe of the window was checked"]
+
+
+def test_the_reference_solves_no_pose_from_fewer_than_3_matches():
+    cam = checks.RefCam(500.0, 500.0, 160.0, 120.0, 0.0, 320, 240)
+    opt = {"rounds": 4, "iters": 10, "chi2_mono": 5.991, "chi2_stereo": 7.815}
+    g = torch.Generator().manual_seed(5)
+    X = torch.rand(6, 3, generator=g, dtype=torch.float64) + \
+        torch.tensor([-0.5, -0.5, 2.0], dtype=torch.float64)
+    obs = torch.stack([cam.fx * X[:, 0] / X[:, 2] + cam.cx,
+                       cam.fy * X[:, 1] / X[:, 2] + cam.cy,
+                       torch.full((6,), -1.0, dtype=torch.float64)], -1)
+    w = torch.ones(6, dtype=torch.float64)
+    R0 = torch.eye(3, dtype=torch.float64)
+    t0 = torch.tensor([0.02, -0.01, 0.03], dtype=torch.float64)
+    for n in range(7):
+        valid = torch.arange(6) < n
+        R, t, inl = reference.solve_pose(R0, t0, X, obs, w, valid, cam, opt,
+                                         torch.float64)
+        if n < 3:
+            assert torch.equal(R, R0) and torch.equal(t, t0)
+            assert not bool(inl.any())
+        else:
+            # Exact projections from the identity: the solve finds it.
+            assert float(torch.linalg.norm(t)) < 1e-6, n
+            assert torch.equal(inl, valid)
+
+
+# ------------------------------------------------------------------ #
 # The reference against the port at a small size
 # ------------------------------------------------------------------ #
 
